@@ -1,0 +1,4 @@
+"""Re-export of ``vid_dup_finder_lib_tpu.crop`` (host-only, no jax): the port
+shares its semantics by construction."""
+
+from vid_dup_finder_lib_tpu.crop import *  # noqa: F401,F403
