@@ -2,14 +2,23 @@
 
     python3 chip_smoke.py
 
-Drives the port's main path (batch hash -> banded search -> groups) on
-``cuda`` at a 1,000,000-hash library, builds every CUDA kernel of that
-path from ``vid_dup_finder_lib_tpu_torch/csrc``, and holds each kernel to
-its plain PyTorch version on the same inputs.  Any mismatch raises and the
-script exits non-zero.  It refuses to run without CUDA.
+Drives the port's paths on ``cuda``, each through its public entry point
+with the kernel launch counts set to 0 just before it and read just after:
+
+* the main path, batch hash -> banded search (two-phase sweep, K1-K3) ->
+  groups, at a 1,000,000-hash library;
+* ``band_1m``: ``search(..., backend="band")`` (the whole-band sweep, K4)
+  on the same library;
+* ``refs_10k_x_1m``: ``search_with_references`` of 10,000 references
+  against 1,000,000 candidates (K2/K3 in their per-row window mode).
+
+It builds every CUDA kernel from ``vid_dup_finder_lib_tpu_torch/csrc`` and
+holds each kernel to its plain PyTorch version on the same inputs.  Any
+mismatch raises and the script exits non-zero.  It refuses to run without
+CUDA.
 
 Output: one progress line per phase; then a JSON line with each kernel's
-launch count in the main-path run, its largest disagreement with the plain
+launch count in its path's run, its largest disagreement with the plain
 version, and both times; then the card's name and power limit from
 nvidia-smi; last, ``{"ok": true, "device": {...}}``.
 """
@@ -35,6 +44,9 @@ TOLERANCE = 0.35  # search() tolerance; 350 in the integer Hamming domain
 TOL_INT = 350
 N_CUBES = 65_536
 N_GOLDEN = 512
+N_REFS = 10_000  # references of the refs phase (tools/bench_refs.py's recipe)
+REFS_PLANT_EVERY = 100
+PEAK_BYTES_LIMIT = 2 * 2**30  # the band path's device memory at 1M
 REPO = os.path.dirname(os.path.abspath(__file__))
 
 
@@ -61,6 +73,58 @@ def cuda_ms(fn, reps: int = 5) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def timed(fn):
+    """(fn(), device ms of that one call by CUDA events)."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def bit_diff(a: torch.Tensor, b: torch.Tensor) -> int:
+    """Largest number of differing bits in one int32 word of a and b."""
+    return int(np.bitwise_count((a ^ b).cpu().numpy().view(np.uint32)).max(initial=0))
+
+
+def check_band_sweep(hb, state, tol: int) -> tuple[int, float, float]:
+    """K4 against its plain version on every row tile, range by range:
+    counts equal everywhere, words equal on every tile with a match.
+    Returns the largest bit difference, and the kernel's and the plain
+    version's ms summed over the ranges."""
+    err, k_ms, p_ms = 0, 0.0, 0.0
+    for rt0, rt1 in hb.band_ranges(state):
+        (ck, wk), ms = timed(lambda: hb.band_sweep(state, tol, rt0, rt1))
+        (cp, wp), pms = timed(lambda: hb.band_sweep_plain(state, tol, rt0, rt1))
+        k_ms, p_ms = k_ms + ms, p_ms + pms
+        cdiff = int((ck - cp).abs().max()) if cp.numel() else 0
+        require(cdiff == 0, f"K4 counts of row tiles [{rt0}, {rt1}) differ by {cdiff}")
+        r, s = torch.nonzero(cp, as_tuple=True)
+        idx = hb.tile_offsets(state, rt0, rt1)[r] + s
+        err = max(err, bit_diff(wk[idx], wp[idx]))
+        require(err == 0, f"K4 words of row tiles [{rt0}, {rt1}) differ by {err} bits")
+    return err, k_ms, p_ms
+
+
+def refs_inputs(seed: int):
+    """tools/bench_refs.py's headline recipe: 10,000 refs against 1,000,000
+    candidates, durations 30-7200 s, every 100th ref a copy of the
+    candidate at its window's lo (the planted pairs)."""
+    rng = np.random.default_rng(seed)
+    cand_durs = np.sort(rng.integers(30, 7200, N_LIBRARY))
+    ref_durs = np.sort(rng.integers(30, 7200, N_REFS))
+    lo = np.searchsorted(cand_durs, (ref_durs * 0.95).astype(np.int64), "left")
+    hi = np.searchsorted(cand_durs, (ref_durs * 1.05).astype(np.int64), "right")
+    refs = rng.integers(0, 2**32, (N_REFS, 32), dtype=np.uint64).astype(np.uint32)
+    cands = rng.integers(0, 2**32, (N_LIBRARY, 32), dtype=np.uint64).astype(np.uint32)
+    planted = [(k, int(lo[k])) for k in range(0, N_REFS, REFS_PLANT_EVERY) if hi[k] > lo[k]]
+    for k, c in planted:
+        refs[k] = cands[c]
+    return refs, ref_durs, cands, cand_durs, lo, hi, planted
 
 
 def make_cubes(rng: np.random.Generator) -> np.ndarray:
@@ -138,6 +202,7 @@ def main() -> int:
     import vid_dup_finder_lib_tpu_torch as vdf
     from vid_dup_finder_lib_tpu_torch.ingest import available_backends
     from vid_dup_finder_lib_tpu_torch.models.pipeline import hash_videos
+    from vid_dup_finder_lib_tpu_torch.ops import hamming_band as hb
     from vid_dup_finder_lib_tpu_torch.ops import hamming_cuda as hc
     from vid_dup_finder_lib_tpu_torch.ops.golden import hash_bits_golden
     from vid_dup_finder_lib_tpu_torch.ops.hamming import banded_adjacency
@@ -222,26 +287,58 @@ def main() -> int:
     hits = hc.hit_tiles(state, cp)
     wk3 = hc.band_pack(state, hits, TOL_INT)
     wp3 = hc.band_pack_plain(state, hits, TOL_INT)
-    k3_err = int(np.bitwise_count((wk3 ^ wp3).cpu().numpy().view(np.uint32)).max(initial=0))
+    k3_err = bit_diff(wk3, wp3)
     require(k3_err == 0, f"packed words differ by up to {k3_err} bits")
     k2_ms = cuda_ms(lambda: hc.band_counts(state, TOL_INT))
     k2_plain_ms = cuda_ms(lambda: hc.band_counts_plain(state, TOL_INT), reps=3)
     k3_ms = cuda_ms(lambda: hc.band_pack(state, hits, TOL_INT))
     k3_plain_ms = cuda_ms(lambda: hc.band_pack_plain(state, hits, TOL_INT))
     t0 = time.perf_counter()
-    ki, kj = hc.banded_adjacency_cuda(state, TOL_INT)
+    pairs_i, pairs_j = hc.banded_adjacency_cuda(state, TOL_INT)
     sweep_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     pi, pj = hc.banded_adjacency_plain(state, TOL_INT)
     sweep_plain_s = time.perf_counter() - t0
-    require(np.array_equal(ki, pi) and np.array_equal(kj, pj),
-            f"1M pairs: kernel {len(ki)} vs plain {len(pi)}")
-    phase("search_1m", bound="exact", comparisons=comps, pairs=len(ki), hit_tiles=hits.shape[0],
+    require(np.array_equal(pairs_i, pi) and np.array_equal(pairs_j, pj),
+            f"1M pairs: kernel {len(pairs_i)} vs plain {len(pi)}")
+    phase("search_1m", bound="exact", comparisons=comps, pairs=len(pairs_i), hit_tiles=hits.shape[0],
           sweep_s=round(sweep_s, 4), sweep_plain_s=round(sweep_plain_s, 4),
           comps_per_s=f"{comps / sweep_s:.4g}",
           counts_ms=round(k2_ms, 3), counts_plain_ms=round(k2_plain_ms, 3),
           pack_ms=round(k3_ms, 3), pack_plain_ms=round(k3_plain_ms, 3),
           launches=json.dumps({fn.__name__: fn.launches for fn in counters}))
+
+    # ---- K4: the public search(backend="band") on the 1M library, counted
+    band_counters = (hb.band_sweep, hc.band_counts, hc.band_pack)
+    for fn in band_counters:
+        fn.launches = 0
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    band_groups = vdf.search(hashes, TOLERANCE, backend="band", device=dev)
+    torch.cuda.synchronize()
+    band_e2e_s = time.perf_counter() - t0
+    band_peak = torch.cuda.max_memory_allocated(dev) - base
+    band_launches = {fn.__name__: fn.launches for fn in band_counters}
+    require(band_launches["band_sweep"] > 0, f"K4 launched: {band_launches}")
+    require(groups_as_sets(band_groups) == planted,
+            f"band search found {len(groups_as_sets(band_groups))} groups")
+    require(band_groups == groups, "band and device backends: groups differ")
+    require(band_peak < PEAK_BYTES_LIMIT, f"band path peak {band_peak} bytes")
+    # the sweep alone on the resident state: pairs, then K4 vs its plain version
+    t0 = time.perf_counter()
+    bi, bj = hb.banded_adjacency_band(None, None, TOL_INT, state=state)
+    band_sweep_s = time.perf_counter() - t0
+    require(np.array_equal(bi, pairs_i) and np.array_equal(bj, pairs_j),
+            f"1M pairs: K4 {len(bi)} vs two-phase {len(pairs_i)}")
+    ranges = hb.band_ranges(state)
+    k4_err, k4_sum_ms, k4_plain_ms = check_band_sweep(hb, state, TOL_INT)
+    k4_ms = cuda_ms(lambda: [hb.band_sweep(state, TOL_INT, a, b) for a, b in ranges], reps=3)
+    phase("band_1m", bound="exact", seconds=round(band_e2e_s, 3), groups=len(band_groups),
+          pairs=len(bi), ranges=len(ranges), sweep_s=round(band_sweep_s, 4),
+          comps_per_s=f"{comps / band_sweep_s:.4g}", kernel_ms=round(k4_ms, 3),
+          kernel_ms_checked=round(k4_sum_ms, 3), plain_ms=round(k4_plain_ms, 3),
+          peak_bytes=band_peak, launches=json.dumps(band_launches))
 
     # ---- dense phase B and nonzero pad bits
     for name, (lib, lb) in (("dense", dense_library(rng)),
@@ -251,6 +348,10 @@ def main() -> int:
         pi, pj = hc.banded_adjacency_plain(st, TOL_INT)
         require(np.array_equal(ki, pi) and np.array_equal(kj, pj),
                 f"{name}: kernel {len(ki)} pairs vs plain {len(pi)}")
+        bi, bj = hb.banded_adjacency_band(None, None, TOL_INT, state=st)
+        require(np.array_equal(bi, pi) and np.array_equal(bj, pj),
+                f"{name}: K4 {len(bi)} pairs vs plain {len(pi)}")
+        k4_err = max(k4_err, check_band_sweep(hb, st, TOL_INT)[0])
         if name == "pad_bits":
             hi, hj = banded_adjacency(lib, lb, TOL_INT, backend="host")
             require(np.array_equal(ki, hi) and np.array_equal(kj, hj),
@@ -258,6 +359,57 @@ def main() -> int:
         require(len(ki) > 0, f"{name}: no pairs")
         phase(name, hashes=lib.shape[0], pairs=len(ki), hit_tiles=int(
             (hc.band_counts(st, TOL_INT) > 0).sum()))
+
+    # ---- references search: 10k refs x 1M candidates, public API, counted
+    refs, ref_durs, cands, cand_durs, lo, hi, plants = refs_inputs(SEED)
+    cand_hashes = vdf.VideoHash.many_from_packed_u32(
+        cands, (f"/v/{i:08}.mp4" for i in range(N_LIBRARY)), cand_durs)
+    ref_hashes = vdf.VideoHash.many_from_packed_u32(
+        refs, (f"/r/{k:06}.mp4" for k in range(N_REFS)), ref_durs)
+    refs_comps = int(np.sum(hi - lo))
+    for fn in band_counters:
+        fn.launches = 0
+    t0 = time.perf_counter()
+    ref_groups = vdf.search_with_references(ref_hashes, cand_hashes, TOLERANCE, device=dev)
+    torch.cuda.synchronize()
+    refs_e2e_s = time.perf_counter() - t0
+    refs_launches = {fn.__name__: fn.launches for fn in band_counters}
+    require(refs_launches["band_counts"] > 0 and refs_launches["band_pack"] > 0,
+            f"window-mode kernels launched: {refs_launches}")
+    want = {f"/r/{k:06}.mp4": {f"/v/{c:08}.mp4"} for k, c in plants}
+    got = {g.reference: set(g.duplicates) for g in ref_groups}
+    require(len(plants) == N_REFS // REFS_PLANT_EVERY and got == want,
+            f"refs search: {len(got)} groups, {sum(got.get(k) == v for k, v in want.items())}"
+            f" of the {len(want)} planted pairs")
+    # K2/K3 in window mode vs their plain versions, and the pairs
+    rst = hc.RefsState(refs, cands, lo, hi, dev)
+    require(rst.comparisons() == refs_comps, "refs state comparisons")
+    rk2 = hc.band_counts(rst, TOL_INT)
+    rp2 = hc.band_counts_plain(rst, TOL_INT)
+    k2_refs_err = int((rk2 - rp2).abs().max())
+    require(k2_refs_err == 0, f"window-mode counts differ by up to {k2_refs_err}")
+    rhits = hc.hit_tiles(rst, rp2)
+    k3_refs_err = bit_diff(hc.band_pack(rst, rhits, TOL_INT), hc.band_pack_plain(rst, rhits, TOL_INT))
+    require(k3_refs_err == 0, f"window-mode words differ by up to {k3_refs_err} bits")
+    t0 = time.perf_counter()
+    ri, rj = hc.refs_adjacency_cuda(rst, TOL_INT)
+    refs_sweep_s = time.perf_counter() - t0
+    rpi, rpj = hc.refs_adjacency_plain(rst, TOL_INT)
+    require(np.array_equal(ri, rpi) and np.array_equal(rj, rpj),
+            f"refs pairs: kernel {len(ri)} vs plain {len(rpi)}")
+    require(list(zip(ri.tolist(), rj.tolist())) == plants, "refs pairs are the planted ones")
+    k2_refs_ms = cuda_ms(lambda: hc.band_counts(rst, TOL_INT))
+    k2_refs_plain_ms = cuda_ms(lambda: hc.band_counts_plain(rst, TOL_INT), reps=3)
+    k3_refs_ms = cuda_ms(lambda: hc.band_pack(rst, rhits, TOL_INT))
+    k3_refs_plain_ms = cuda_ms(lambda: hc.band_pack_plain(rst, rhits, TOL_INT))
+    phase("refs_10k_x_1m", bound="exact", refs=N_REFS, candidates=N_LIBRARY,
+          comparisons=refs_comps, groups=len(ref_groups), planted_found=len(got),
+          seconds=round(refs_e2e_s, 3), sweep_s=round(refs_sweep_s, 4),
+          comps_per_s=f"{refs_comps / refs_sweep_s:.4g}", ref_tiles=rst.n_row_tiles,
+          slots=rst.slots, hit_tiles=rhits.shape[0],
+          counts_ms=round(k2_refs_ms, 3), counts_plain_ms=round(k2_refs_plain_ms, 3),
+          pack_ms=round(k3_refs_ms, 3), pack_plain_ms=round(k3_refs_plain_ms, 3),
+          launches=json.dumps(refs_launches))
 
     # ---- real content: the frozen hashes of the bundled cat/dog videos
     with open(os.path.join(REPO, "tests", "oracles", "reference_vids_hashes.json")) as f:
@@ -294,11 +446,19 @@ def main() -> int:
         dict(name="band_counts_kernel", route="cuda", source=csrc + "hamming_band.cu",
              replaces="vid_dup_finder_lib_tpu/ops/hamming_pallas.py:559",
              launches=launches["band_counts"], max_abs_err=k2_err,
-             ms=k2_ms, plain_ms=k2_plain_ms),
+             ms=k2_ms, plain_ms=k2_plain_ms,
+             refs_launches=refs_launches["band_counts"], refs_max_abs_err=k2_refs_err,
+             refs_ms=k2_refs_ms, refs_plain_ms=k2_refs_plain_ms),
         dict(name="band_pack_kernel", route="cuda", source=csrc + "hamming_band.cu",
              replaces="vid_dup_finder_lib_tpu/ops/hamming_pallas.py:130",
              launches=launches["band_pack"], max_abs_err=k3_err,
-             ms=k3_ms, plain_ms=k3_plain_ms),
+             ms=k3_ms, plain_ms=k3_plain_ms,
+             refs_launches=refs_launches["band_pack"], refs_max_abs_err=k3_refs_err,
+             refs_ms=k3_refs_ms, refs_plain_ms=k3_refs_plain_ms),
+        dict(name="band_sweep_kernel", route="cuda", source=csrc + "band_sweep.cu",
+             replaces="vid_dup_finder_lib_tpu/ops/hamming_band.py:50",
+             launches=band_launches["band_sweep"], max_abs_err=k4_err,
+             ms=k4_ms, plain_ms=k4_plain_ms),
     ]
     print(json.dumps({"kernels": kernels}))
     print(smi)

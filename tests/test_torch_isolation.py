@@ -20,9 +20,10 @@ import torch
 
 import vid_dup_finder_lib_tpu_torch as tvdf
 from vid_dup_finder_lib_tpu_torch.models.pipeline import hash_videos
+from vid_dup_finder_lib_tpu_torch.ops import hamming_band as hb
 from vid_dup_finder_lib_tpu_torch.ops import hamming_cuda as hc
 from vid_dup_finder_lib_tpu_torch.ops import hash_kernel as hk
-from vid_dup_finder_lib_tpu_torch.ops.hamming import banded_adjacency
+from vid_dup_finder_lib_tpu_torch.ops.hamming import banded_adjacency, refs_adjacency
 from vid_dup_finder_lib_tpu_torch.utils import cuda_build
 from vid_dup_finder_lib_tpu_torch.utils.device import resolve_device
 
@@ -118,7 +119,7 @@ def test_cpu_tensors_take_the_plain_versions(monkeypatch):
         raise AssertionError("the kernel library was asked for on the CPU")
 
     monkeypatch.setattr(cuda_build, "load_library", refuse)
-    counters = (hk.hash_cubes, hc.band_counts, hc.band_pack)
+    counters = (hk.hash_cubes, hc.band_counts, hc.band_pack, hb.band_sweep)
     before = [f.launches for f in counters]
     rng = np.random.default_rng(1)
     cubes = torch.from_numpy(rng.integers(0, 256, (2, 16, 16, 16), dtype=np.uint8))
@@ -126,7 +127,10 @@ def test_cpu_tensors_take_the_plain_versions(monkeypatch):
     packed = rng.integers(0, 2**32, (300, 32), dtype=np.uint64).astype(np.uint32)
     packed[1] = packed[0]
     bounds = np.full(300, 300)
-    i, j = banded_adjacency(packed, bounds, 0, device="cpu")
+    for backend in ("device", "band"):
+        i, j = banded_adjacency(packed, bounds, 0, backend=backend, device="cpu")
+        assert (i.tolist(), j.tolist()) == ([0], [1])
+    i, j = refs_adjacency(packed[:1], packed, [1], [300], 0, device="cpu")
     assert (i.tolist(), j.tolist()) == ([0], [1])
     assert [f.launches for f in counters] == before
 

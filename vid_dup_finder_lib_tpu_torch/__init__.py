@@ -9,8 +9,9 @@ single-video builder, ingest) are the JAX package's own, imported rather
 than copied; none of them imports jax.  This package never imports jax.
 
 Device entry points take an explicit ``device`` (``None`` = PyTorch's
-default device): ``search``, ``models.pipeline.hash_videos``,
-``ops.hash_kernel.hash_cubes``, ``ops.hamming.banded_adjacency``.
+default device): ``search``, ``search_with_references``,
+``models.pipeline.hash_videos``, ``ops.hash_kernel.hash_cubes``,
+``ops.hamming.banded_adjacency``, ``ops.hamming.refs_adjacency``.
 """
 
 from .crop import Crop

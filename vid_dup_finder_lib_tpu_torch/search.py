@@ -1,37 +1,41 @@
 """Duplicate search on the port: ``search`` / ``search_with_references``.
 
-``Search`` subclasses the JAX package's ``Search`` and overrides only how
-the duration-banded adjacency is computed (``_ensure_adjacency``), which
-it routes through :func:`.ops.hamming.banded_adjacency` on the Search's
-device.  Sorting, windows and the greedy replay of the reference's
-consume order are the JAX package's own code, so groups match it by
-construction.
+``Search`` subclasses the JAX package's ``Search`` and overrides how the
+device does its part: the duration-banded adjacency of the self-search
+(``_ensure_adjacency``, through :func:`.ops.hamming.banded_adjacency`) and
+the batched references search (``search_with_references_batched``, through
+:func:`.ops.hamming.refs_adjacency`), both on the Search's device.
+Sorting, windows and the greedy replay of the reference's consume order
+are the JAX package's own code, so groups match it by construction.
 
 Backends of ``search``:
 
 * ``"auto"``: below 4096 entries the reference's pairwise loop, above it
-  the adjacency on ``device``;
-* ``"device"``: the adjacency on ``device`` at any size;
+  the two-phase adjacency on ``device``;
+* ``"device"``: the two-phase adjacency (K2 + K3) on ``device`` at any size;
+* ``"band"``: the whole-band adjacency (K4) on ``device`` at any size;
 * ``"host"``: the adjacency from the JAX package's NumPy sweep;
 * ``"naive"``: the pairwise loop at any size.
 """
 
 from __future__ import annotations
 
-from typing import Iterable
+from typing import Iterable, Sequence
 
 import numpy as np
 import torch
 
+from vid_dup_finder_lib_tpu.search import _BATCHED_REFS_THRESHOLD, _tolerance_int
 from vid_dup_finder_lib_tpu.search import Search as _RefSearch
+from vid_dup_finder_lib_tpu.video_hash import hashes_to_matrix
 
 from .definitions import DEFAULT_SEARCH_TOLERANCE
 from .match_group import MatchGroup, TooFewEntries
-from .ops.hamming import banded_adjacency
+from .ops.hamming import banded_adjacency, refs_adjacency
 from .utils.device import resolve_device
 from .video_hash import VideoHash
 
-BACKENDS = ("auto", "device", "host", "naive")
+BACKENDS = ("auto", "device", "band", "host", "naive")
 
 _NOT_PORTED = (
     "device-resident libraries are not ported yet (see ROADMAP.md,"
@@ -57,13 +61,46 @@ class Search(_RefSearch):
             self._packed_matrix(),
             self._self_search_bounds(),
             tolerance_int,
-            backend="host" if backend == "host" else "device",
+            backend=backend,
             device=self.device,
         )
         # pairs are lexsorted by (i, j): CSR by one searchsorted
         self._adj_j = pairs_j
         self._adj_off = np.searchsorted(pairs_i, np.arange(len(self.entries) + 1))
         self._tol_of_adjacency = tolerance_int
+
+    def search_with_references_batched(
+        self, references: Sequence[VideoHash], tolerance: float
+    ) -> list[list[str]]:
+        """Non-consuming multi-reference search, output-identical to
+        ``search_one(consume=False)`` per reference
+        (video_dup_finder.rs:19-46): the references, sorted by duration,
+        are swept against their [0.95d, 1.05d] windows in one
+        :func:`.ops.hamming.refs_adjacency` on the Search's device.
+        Candidates already ``matched`` are dropped after the sweep; each
+        reference's matches come in ascending candidate order, and the
+        results in input order."""
+        tol = _tolerance_int(tolerance)
+        refs = list(references)
+        if not refs or not self.entries:
+            return [[] for _ in refs]
+        order = sorted(range(len(refs)), key=lambda k: refs[k].duration)
+        windows = np.array(
+            [self._duration_slice(refs[k].duration) for k in order], np.int64
+        )
+        pi, pj = refs_adjacency(
+            hashes_to_matrix([refs[k] for k in order]),
+            self._packed_matrix(),
+            windows[:, 0],
+            windows[:, 1],
+            tol,
+            device=self.device,
+        )
+        keep = ~self.matched[pj]
+        results: list[list[str]] = [[] for _ in refs]
+        for i, j in zip(pi[keep].tolist(), pj[keep].tolist()):
+            results[order[i]].append(self.entries[j].src_path)
+        return results
 
     def attach_device_library(self, library, insertion_paths, geom=None):
         raise NotImplementedError(_NOT_PORTED)
@@ -106,17 +143,23 @@ def search_with_references(
     ref_hashes: Iterable[VideoHash],
     new_hashes: Iterable[VideoHash],
     tolerance: float | None = None,
+    device: torch.device | str | None = None,
 ) -> list[MatchGroup]:
     """Per reference video, its duplicates among ``new_hashes``
-    (``vid_dup_finder_lib::search_with_references``): one reference at a
-    time, non-consuming, on the host.  The device path is not ported yet
-    (ROADMAP.md)."""
+    (``vid_dup_finder_lib::search_with_references``), non-consuming.  From
+    64 references up, one batched sweep on ``device``
+    (:meth:`Search.search_with_references_batched`); below that, one
+    reference at a time on the host, as the JAX package does."""
     if tolerance is None:
         tolerance = DEFAULT_SEARCH_TOLERANCE
-    s = Search(new_hashes, device="cpu")
+    s = Search(new_hashes, device=device)
+    refs = list(ref_hashes)
+    if len(refs) >= _BATCHED_REFS_THRESHOLD:
+        all_matches = s.search_with_references_batched(refs, tolerance)
+    else:
+        all_matches = s.search_with_references(refs, tolerance, consume=False)
     out: list[MatchGroup] = []
-    for ref in ref_hashes:
-        matches = s.search_with_references([ref], tolerance, consume=False)[0]
+    for ref, matches in zip(refs, all_matches):
         if matches:
             try:
                 out.append(MatchGroup.new_with_reference(ref.src_path, matches))

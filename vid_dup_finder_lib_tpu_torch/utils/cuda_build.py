@@ -1,9 +1,10 @@
 """Build and load the port's CUDA kernels (``csrc/*.cu``) at first use.
 
-The sources are compiled by ``nvcc`` for ``sm_90a`` into one shared
-library with a plain C interface, loaded with ``ctypes``.  A library that
-includes PyTorch's headers takes minutes to compile; this one takes
-seconds.  The output lands in ``build/vdf_torch_kernels/<digest>/`` at the
+Each ``.cu`` source is compiled by its own ``nvcc`` for ``sm_90a``, all
+of them at once, and the objects are linked into one shared library with
+a plain C interface, loaded with ``ctypes``.  A library that includes
+PyTorch's headers takes minutes to compile; this one takes seconds.  The
+output lands in ``build/vdf_torch_kernels/<digest>/`` at the
 root of the checkout, keyed by a digest of the sources and flags, so a
 changed source rebuilds and an unchanged one loads the cached library.
 
@@ -18,6 +19,7 @@ import ctypes
 import hashlib
 import os
 import subprocess
+import tempfile
 import threading
 import time
 from pathlib import Path
@@ -28,7 +30,7 @@ BUILD_ROOT = _PKG_DIR.parent / "build" / "vdf_torch_kernels"
 LIB_NAME = "libvdf_torch.so"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 )
 
@@ -39,10 +41,15 @@ _I64 = ctypes.c_int64
 _SIGNATURES = {
     # cubes u8[B,4096], d3 f32[4096,1024], out i32[B,32], B, stream
     "vdf_hash_dct": (_P, _P, _P, _I64, _P),
-    # packed, bounds, first_ct, n_ct, counts, n_row_tiles, slots, n, tol, stream
-    "vdf_band_counts": (_P, _P, _P, _P, _P, _I64, _I32, _I32, _I32, _P),
-    # packed, bounds, hits i32[H,2], words i32[H,4,128], H, n, tol, stream
-    "vdf_band_pack": (_P, _P, _P, _P, _I64, _I32, _I32, _P),
+    # rows, cols, bounds, row_lo (or NULL), first_ct, n_ct, counts,
+    # n_row_tiles, slots, n, tol, stream
+    "vdf_band_counts": (_P, _P, _P, _P, _P, _P, _P, _I64, _I32, _I32, _I32, _P),
+    # rows, cols, bounds, row_lo (or NULL), hits i32[H,2],
+    # words i32[H,4,128], H, n, tol, stream
+    "vdf_band_pack": (_P, _P, _P, _P, _P, _P, _I64, _I32, _I32, _P),
+    # packed, bounds, first_ct, n_ct, tile_off i64[R], counts i32[R,slots],
+    # words i32[tiles,4,128], R, rt0, slots, n, tol, stream
+    "vdf_band_sweep": (_P, _P, _P, _P, _P, _P, _P, _I64, _I32, _I32, _I32, _I32, _P),
 }
 
 _LOCK = threading.Lock()
@@ -84,19 +91,45 @@ def _build() -> Path:
         return out
     out_dir.mkdir(parents=True, exist_ok=True)
     tmp = out_dir / f"{LIB_NAME}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *[str(p) for p in srcs if p.suffix == ".cu"]]
+    nvcc = _nvcc()
+    logs: list[str] = []
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    with tempfile.TemporaryDirectory(dir=out_dir) as work:
+        cu = [p for p in srcs if p.suffix == ".cu"]
+        objs = [f"{work}/{p.stem}.o" for p in cu]
+        # one nvcc per source, all started together, then one link
+        jobs = [
+            _start([nvcc, *NVCC_FLAGS, "-c", "-o", o, str(p)])
+            for o, p in zip(objs, cu)
+        ]
+        try:
+            for job in jobs:
+                logs.append(_finish(*job))
+        finally:
+            for _, proc in jobs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        link = [nvcc, *NVCC_FLAGS[:2], "-shared", "-o", str(tmp), *objs]
+        logs.append(_finish(*_start(link)))
     seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stderr}"
-        )
     os.replace(tmp, out)  # atomic: concurrent builders never see a torn file
-    BUILD_INFO.update(seconds=seconds, path=str(out), log=proc.stderr)
+    BUILD_INFO.update(seconds=seconds, path=str(out), log="".join(logs))
     return out
+
+
+def _start(cmd: list[str]) -> tuple[list[str], subprocess.Popen]:
+    return cmd, subprocess.Popen(
+        cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True
+    )
+
+
+def _finish(cmd: list[str], proc: subprocess.Popen) -> str:
+    """Wait for one nvcc; its stderr (the ptxas report), or raise."""
+    _, err = proc.communicate()
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{err}")
+    return err
 
 
 def load_library() -> ctypes.CDLL:
