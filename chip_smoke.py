@@ -10,7 +10,19 @@ with the kernel launch counts set to 0 just before it and read just after:
 * ``band_1m``: ``search(..., backend="band")`` (the whole-band sweep, K4)
   on the same library;
 * ``refs_10k_x_1m``: ``search_with_references`` of 10,000 references
-  against 1,000,000 candidates (K2/K3 in their per-row window mode).
+  against 1,000,000 candidates (K2/K3 in their per-row window mode);
+* ``library_1m``: the same searches over a growing device-resident library
+  (``IncrementalDeviceLibrary``, ``search(..., device_library=)``): (a) the
+  1M library appended in 8 shuffled chunks, (b) appended sorted (zero-copy
+  state) on K2 + K3 and on K4, (c) grown by 100,000 rows and searched at
+  1.1M, (d) the 10k x 1M references search over a resident library;
+* ``device_preproc_1080p``: letterbox detection, resize and hash of 64
+  synthetic 1920x1080 videos on the card (``hash_raw_frames_device``),
+  flushed at the pipeline's 512 MiB;
+* ``real_content``: the bundled clips, hashed with host and with device
+  preprocessing;
+* ``cli``: the port's CLI (``app.run_app``) on the bundled clips, twice,
+  the second time from its cache.
 
 It builds every CUDA kernel from ``vid_dup_finder_lib_tpu_torch/csrc`` and
 holds each kernel to its plain PyTorch version on the same inputs.  Any
@@ -18,18 +30,23 @@ mismatch raises and the script exits non-zero.  It refuses to run without
 CUDA.
 
 Output: one progress line per phase; then a JSON line with each kernel's
-launch count in its path's run, its largest disagreement with the plain
+launch count in its path's run (and in each later phase that launches it,
+``new_phase_launches``), its largest disagreement with the plain
 version, and both times; then the card's name and power limit from
 nvidia-smi; last, ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
+import multiprocessing
 import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -47,6 +64,21 @@ N_GOLDEN = 512
 N_REFS = 10_000  # references of the refs phase (tools/bench_refs.py's recipe)
 REFS_PLANT_EVERY = 100
 PEAK_BYTES_LIMIT = 2 * 2**30  # the band path's device memory at 1M
+LIBRARY_CHUNKS = 8  # appends of the 1M library
+N_GROWTH = 100_000  # rows appended to the sorted library in library_1m (c)
+N_GROWTH_CLUSTERS = 20
+N_VIDEOS = 64  # synthetic 1080p videos of device_preproc_1080p
+VIDEO_SHAPE = (16, 1080, 1920)
+N_GOLDEN_VIDEOS = 4  # videos held to the golden cubes bit for bit
+HOST_WORKERS = 6  # processes running the host letterbox check
+# synthetic bars (top, bottom, left, right, grey level): letterbox,
+# pillarbox, windowbox, asymmetric and none, so the videos fall into
+# several crop buckets
+BARS = [
+    (0, 0, 0, 0, 0), (140, 140, 0, 0, 0), (0, 0, 240, 240, 0),
+    (60, 60, 200, 200, 16), (132, 132, 0, 0, 8), (20, 0, 0, 0, 240),
+    (0, 0, 90, 30, 4), (6, 10, 12, 2, 0),
+]
 REPO = os.path.dirname(os.path.abspath(__file__))
 
 
@@ -144,14 +176,14 @@ def flip_bits(h: np.ndarray, rng, count: int) -> np.ndarray:
     return h
 
 
-def planted_library(n: int, seed: int):
+def planted_library(n: int, seed: int, n_clusters: int = N_CLUSTERS):
     """Random duration-sorted library with planted 3-hash clusters, pad
     bits masked (the recipe of bench.py's synth_library)."""
     rng = np.random.default_rng(seed)
     packed = rng.integers(0, 2**32, (n, 32), dtype=np.uint64).astype(np.uint32)
     packed[:, -1] &= np.uint32(0xFF)
     durations = np.sort(rng.integers(30, 7200, n))
-    starts = rng.choice(n // 8 - 1, N_CLUSTERS, replace=False) * 8
+    starts = rng.choice(n // 8 - 1, n_clusters, replace=False) * 8
     for s in starts:
         for k in range(1, CLUSTER_SIZE):
             packed[s + k] = flip_bits(packed[s], rng, CLUSTER_RADIUS)
@@ -192,6 +224,179 @@ def pad_bit_library(rng):
 
 def groups_as_sets(groups) -> set:
     return {frozenset(os.path.basename(p) for p in g.contained_paths()) for g in groups}
+
+
+def make_video(i: int) -> np.ndarray:
+    """Synthetic raw video ``i``: uint8[16, 1080, 1920] noise with the bars
+    ``BARS[i % len(BARS)]`` (grey level plus up to 7 of noise, inside the
+    detector's tolerance), from the seed."""
+    rng = np.random.default_rng((SEED, i))
+    v = rng.integers(0, 256, VIDEO_SHAPE, dtype=np.uint8)
+    top, bottom, left, right, grey = BARS[i % len(BARS)]
+    h, w = VIDEO_SHAPE[1:]
+    for region in (np.s_[:, :top], np.s_[:, h - bottom :], np.s_[:, :, :left],
+                   np.s_[:, :, w - right :]):
+        bar = v[region]
+        bar[...] = grey + (bar & 7)
+    return v
+
+
+def host_crop(i: int):
+    """The host detector's crop of ``make_video(i)`` (run in a worker)."""
+    from vid_dup_finder_lib_tpu_torch.ops.letterbox import cropdetect_letterbox
+
+    return cropdetect_letterbox(list(make_video(i)))
+
+
+def preproc_batches(limit_bytes: int) -> list[list[int]]:
+    """The videos in the pipeline's flush order: a batch closes when its
+    raw frames reach ``limit_bytes`` (``_hash_videos_device_preproc``)."""
+    per_video = int(np.prod(VIDEO_SHAPE))
+    out, cur = [], []
+    for i in range(N_VIDEOS):
+        cur.append(i)
+        if len(cur) * per_video >= limit_bytes:
+            out.append(cur)
+            cur = []
+    return out + ([cur] if cur else [])
+
+
+def reset(counters) -> None:
+    for fn in counters:
+        fn.launches = 0
+
+
+def counts(counters) -> dict:
+    return {fn.__name__: fn.launches for fn in counters}
+
+
+def device_preproc_phase(dev, hash_cubes) -> int:
+    """``device_preproc_1080p``: the synthetic 1080p videos in the
+    pipeline's 512 MiB batches through ``hash_raw_frames_device`` (h2d from
+    pinned memory, letterbox, resize, K1), then each stage alone on the
+    uploaded batch; crops held to the host detector for every video, cubes
+    and hashes to the golden model for the first four.  Returns the hash
+    kernel's launches in the public calls."""
+    from vid_dup_finder_lib_tpu_torch.models.pipeline import (
+        DEFAULT_PREPROC_BATCH_BYTES,
+        hash_raw_frames_device,
+    )
+    from vid_dup_finder_lib_tpu_torch.ops.golden import crop_resize_golden, hash_bits_golden
+    from vid_dup_finder_lib_tpu_torch.ops.letterbox_device import cropdetect_letterbox_device
+    from vid_dup_finder_lib_tpu_torch.ops.resize_device import resize_frames_device
+    from vid_dup_finder_lib_tpu_torch.video_hash import VideoHash
+
+    batches = preproc_batches(DEFAULT_PREPROC_BATCH_BYTES)
+    crops, words, golden_candidates = {}, {}, {}
+    stage_ms = {"h2d": [], "letterbox": [], "resize": [], "hash": []}
+    public_s, launched = 0.0, 0
+    for batch in batches:
+        host = np.stack([make_video(i) for i in batch])
+        torch.cuda.synchronize()
+        before = hash_cubes.launches
+        t0 = time.perf_counter()
+        out = hash_raw_frames_device(host, device=dev)
+        torch.cuda.synchronize()
+        public_s += time.perf_counter() - t0
+        launched += hash_cubes.launches - before
+        # the same batch, stage by stage, timed by CUDA events
+        pinned = torch.from_numpy(host).pin_memory()
+        frames, ms = timed(lambda: pinned.to(dev, non_blocking=True))
+        stage_ms["h2d"].append(ms)
+        bcrops, ms = timed(lambda: cropdetect_letterbox_device(frames))
+        stage_ms["letterbox"].append(ms)
+
+        def resize():
+            cubes = torch.empty((len(batch), 16, 16, 16), dtype=torch.uint8, device=dev)
+            for crop in set(bcrops):
+                idx = torch.tensor([k for k, c in enumerate(bcrops) if c == crop], device=dev)
+                cubes[idx] = resize_frames_device(frames.index_select(0, idx), crop)
+            return cubes
+
+        cubes, ms = timed(resize)
+        stage_ms["resize"].append(ms)
+        staged, ms = timed(lambda: hash_cubes(cubes))
+        stage_ms["hash"].append(ms)
+        require(torch.equal(staged, out), "hash_raw_frames_device differs from its stages")
+        for k, i in enumerate(batch):
+            crops[i], words[i] = bcrops[k], out[k]
+            if i < N_GOLDEN_VIDEOS:
+                golden_candidates[i] = cubes[k].cpu().numpy()
+        del host, pinned, frames, cubes, out, staged
+    require(launched > 0, "device preprocessing launched no hash kernel")
+
+    # the host detector on every video, in worker processes
+    with multiprocessing.get_context("spawn").Pool(HOST_WORKERS) as pool:
+        host_crops = pool.map(host_crop, range(N_VIDEOS))
+    bad = [i for i in range(N_VIDEOS) if crops[i] != host_crops[i]]
+    require(not bad, f"device crops differ from the host's for videos {bad}")
+    buckets = len(set(host_crops))
+    require(buckets >= 5, f"only {buckets} crop buckets")
+    worst = 0
+    for i in range(N_GOLDEN_VIDEOS):
+        # golden frames are transposed views: stack them contiguous for the kernel
+        gold = np.ascontiguousarray(
+            np.stack([crop_resize_golden(f, host_crops[i]) for f in make_video(i)]))
+        require(np.array_equal(golden_candidates[i], gold), f"video {i}: cubes differ from golden")
+        require(torch.equal(words[i], hash_cubes(torch.from_numpy(gold[None]).to(dev))[0]),
+                f"video {i}: hash differs from hash_cubes of the golden cube")
+        bits = VideoHash.from_packed_u32(words[i].cpu().numpy().view(np.uint32)).hash_bits()
+        worst = max(worst, int((bits != hash_bits_golden(gold)).sum()))
+    require(worst <= 2, f"device preprocessing vs f64 golden hash: {worst} bits")
+    phase("device_preproc_1080p", videos=N_VIDEOS, batches=json.dumps([len(b) for b in batches]),
+          crop_buckets=buckets, crops="exact", golden_cubes=f"{N_GOLDEN_VIDEOS} bit-exact",
+          golden_hash_max_bits=worst, public_s=round(public_s, 4),
+          videos_per_s=f"{N_VIDEOS / public_s:.4g}", public_includes="pinning + h2d",
+          stage_ms_per_batch=json.dumps({k: [round(x, 3) for x in v] for k, v in stage_ms.items()}),
+          stages_include="h2d timed apart; letterbox includes its 16-byte-per-video d2h",
+          launches=json.dumps({"hash_cubes": launched}))
+    return launched
+
+
+def cli_phase(dev, hash_cubes) -> dict:
+    """``cli``: ``run_app`` in process on the bundled clips with a fresh
+    cache and JSON output, twice; the second run must rehash nothing."""
+    from vid_dup_finder_lib_tpu_torch.app import app_fns
+
+    data = os.path.join(REPO, "tests", "data")
+    rehashed = []
+    real_update = app_fns.update_hash_cache
+
+    def counted_update(cfg, cache):
+        rehashed.append(real_update(cfg, cache))
+        return rehashed[-1]
+
+    runs = []
+    app_fns.update_hash_cache = counted_update
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            args = ["--files", data, "--cache-file", os.path.join(tmp, "cache.json"),
+                    "--cropdetect", "letterbox", "--output-format", "json"]
+            for _ in range(2):
+                hash_cubes.launches = 0
+                out = io.StringIO()
+                t0 = time.perf_counter()
+                with contextlib.redirect_stdout(out):
+                    rc = app_fns.run_app(args, device=dev)
+                torch.cuda.synchronize()
+                runs.append(dict(rc=rc, seconds=round(time.perf_counter() - t0, 4),
+                                 groups=json.loads(out.getvalue()), hash_cubes=hash_cubes.launches))
+    finally:
+        app_fns.update_hash_cache = real_update
+    first, second = runs
+    names = sorted(sorted(os.path.basename(p)[:3] for p in g["duplicates"]) for g in first["groups"])
+    require(first["rc"] == 0 and names == [["cat"] * 3, ["dog"] * 3],
+            f"cli: rc {first['rc']}, groups {first['groups']}")
+    require(first["hash_cubes"] > 0 and rehashed[0] == 6,
+            f"cli: {rehashed[0]} rehashed, {first['hash_cubes']} hash launches")
+    require(second["rc"] == 0 and second["groups"] == first["groups"], "cli: second run differs")
+    require(rehashed[1] == 0 and second["hash_cubes"] == 0,
+            f"cli: the second run rehashed {rehashed[1]} files")
+    phase("cli", groups=len(first["groups"]), rehashed=json.dumps(rehashed),
+          seconds=json.dumps([r["seconds"] for r in runs]),
+          launches=json.dumps({"hash_cubes": first["hash_cubes"]}),
+          second_run_launches=json.dumps({"hash_cubes": second["hash_cubes"]}))
+    return {"hash_cubes": first["hash_cubes"]}
 
 
 def main() -> int:
@@ -411,6 +616,106 @@ def main() -> int:
           pack_ms=round(k3_refs_ms, 3), pack_plain_ms=round(k3_refs_plain_ms, 3),
           launches=json.dumps(refs_launches))
 
+    # ---- library_1m: the same searches over a growing device-resident library
+    two_phase = (hc.band_counts, hc.band_pack)
+    lib_launches = {}
+
+    def library_run(name, fn, lib_counters=two_phase):
+        """Run ``fn`` counted, with its wall seconds and peak device
+        memory above what was allocated before it."""
+        reset(band_counters)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launched = counts(band_counters)
+        require(all(launched[fn.__name__] > 0 for fn in lib_counters),
+                f"library_1m ({name}): kernels launched {launched}")
+        lib_launches[name] = launched
+        return out, dict(seconds=round(seconds, 4),
+                         peak_bytes=torch.cuda.max_memory_allocated(dev) - base,
+                         launches=json.dumps(launched))
+
+    def appended(rows, chunks=LIBRARY_CHUNKS):
+        lib = hc.IncrementalDeviceLibrary(dev)
+        for part in np.array_split(rows, chunks):
+            lib.append(part)
+        return lib
+
+    # (a) shuffled insertion order, 8 appends, then a gather into sorted order
+    perm = np.random.default_rng(SEED).permutation(N_LIBRARY)
+    t0 = time.perf_counter()
+    lib = appended(packed[perm])
+    torch.cuda.synchronize()
+    append_s = time.perf_counter() - t0
+    lib_paths = [paths[k] for k in perm]
+    a_groups, a = library_run("a", lambda: vdf.search(
+        hashes, TOLERANCE, device_library=lib, library_paths=lib_paths, device=dev))
+    require(groups_as_sets(a_groups) == planted and a_groups == groups,
+            f"library (a): {len(groups_as_sets(a_groups) & planted)} of {len(planted)}"
+            " planted groups, or groups unequal to the upload path's")
+    phase("library_1m_a", insertion="shuffled", appends=LIBRARY_CHUNKS,
+          append_s=round(append_s, 4), capacity=lib.capacity, groups=len(a_groups),
+          planted_found=len(groups_as_sets(a_groups) & planted), **a)
+    del lib, lib_paths
+
+    # (b) sorted insertion order: the state shares the library's buffer
+    lib = appended(packed)
+    states = []
+    real_state = lib.state
+    lib.state = lambda order, bounds: states.append(real_state(order, bounds)) or states[-1]
+    b_groups, b = library_run("b", lambda: vdf.search(
+        hashes, TOLERANCE, device_library=lib, device=dev))
+    zero_copy = states[-1].packed.data_ptr() == lib.packed.data_ptr()
+    require(zero_copy, "library (b): the identity-order state copied the buffer")
+    require(b_groups == groups, "library (b): groups unequal to the upload path's")
+    bb_groups, bb = library_run("b_band", lambda: vdf.search(
+        hashes, TOLERANCE, backend="band", device_library=lib, device=dev),
+        lib_counters=(hb.band_sweep,))
+    require(states[-1].packed.data_ptr() == lib.packed.data_ptr(),
+            "library (b, band): the identity-order state copied the buffer")
+    require(bb_groups == groups, "library (b, band): groups unequal to the upload path's")
+    phase("library_1m_b", insertion="sorted", zero_copy=zero_copy, groups=len(b_groups),
+          band_groups=len(bb_groups), band_seconds=bb["seconds"],
+          band_peak_bytes=bb["peak_bytes"], band_launches=bb["launches"], **b)
+
+    # (c) 100,000 new rows with 20 more planted clusters, durations spread
+    # among the old ones: the library grows past its capacity and the
+    # search gathers 1.1M rows into sorted order
+    g_packed, g_durs, g_starts = planted_library(N_GROWTH, SEED + 1, N_GROWTH_CLUSTERS)
+    g_paths = [f"g{i:06d}" for i in range(N_GROWTH)]
+    cap_before = lib.capacity
+    lib.append(g_packed)
+    grown = vdf.VideoHash.many_from_packed_u32(
+        np.concatenate([packed, g_packed]), paths + g_paths,
+        np.concatenate([durations, g_durs]))
+    all_planted = planted | {frozenset(g_paths[s + k] for k in range(CLUSTER_SIZE))
+                             for s in g_starts}
+    c_groups, c = library_run("c", lambda: vdf.search(
+        grown, TOLERANCE, device_library=lib, library_paths=paths + g_paths, device=dev))
+    c_found = groups_as_sets(c_groups)
+    require(c_found == all_planted,
+            f"library (c): {len(c_found & all_planted)} of {len(all_planted)} planted groups"
+            f" ({len(c_found)} found)")
+    phase("library_1m_c", rows=lib.n, capacity_before=cap_before, capacity=lib.capacity,
+          groups=len(c_groups), planted_found=len(c_found & all_planted), **c)
+    del lib, states, real_state, grown
+
+    # (d) the 10k x 1M references search over a resident candidate library
+    lib = appended(cands)
+    d_groups, d = library_run("d", lambda: vdf.search_with_references(
+        ref_hashes, cand_hashes, TOLERANCE, device_library=lib, device=dev))
+    d_got = {g.reference: set(g.duplicates) for g in d_groups}
+    require(d_got == want and d_groups == ref_groups,
+            f"library (d): {sum(d_got.get(k) == v for k, v in want.items())} of the"
+            f" {len(want)} planted pairs, or groups unequal to the upload path's")
+    phase("library_1m_d", refs=N_REFS, candidates=N_LIBRARY, planted_found=len(d_got),
+          upload_seconds=round(refs_e2e_s, 4), **d)
+    del lib
+
     # ---- real content: the frozen hashes of the bundled cat/dog videos
     with open(os.path.join(REPO, "tests", "oracles", "reference_vids_hashes.json")) as f:
         oracle = [vdf.VideoHash.from_json(v) for v in json.load(f).values()]
@@ -431,34 +736,57 @@ def main() -> int:
         require(sorted(len(g) for g in vgroups) == [3, 3]
                 and all(len({p[:3] for p in g}) == 1 for g in vgroups),
                 f"tests/data videos grouped as {vgroups}")
+        # the same clips with letterbox detection and resize on the card
+        hash_cubes.launches = 0
+        dhashed = hash_videos(vids, device=dev, device_preproc=True)
+        preproc_real_launches = hash_cubes.launches
+        require(preproc_real_launches > 0, "device preprocessing launched no hash kernel")
+        require(all(isinstance(h, vdf.VideoHash) for h in dhashed.values()),
+                f"device preprocessing: {dhashed}")
+        drift = max(dhashed[v].hamming_distance(hashed[v]) for v in vids)
+        require(drift <= 2, f"device vs host preprocessing: {drift} bits in one hash")
+        dgroups = groups_as_sets(vdf.search(list(dhashed.values()), device=dev))
+        require(dgroups == vgroups, f"device preprocessing grouped as {dgroups}")
         phase("real_content", oracle_groups=len(got), videos=len(vids),
-              video_groups=len(vgroups))
+              video_groups=len(vgroups), device_preproc_groups=len(dgroups),
+              device_preproc_max_bits=drift,
+              device_preproc_launches=json.dumps({"hash_cubes": preproc_real_launches}))
+        cli = cli_phase(dev, hash_cubes)
     else:
         phase("real_content", oracle_groups=len(got),
               videos="decoding unavailable on this host (no opencv/ffmpeg)")
+        cli = {"hash_cubes": 0}
+        phase("cli", skipped="decoding unavailable on this host (no opencv/ffmpeg)")
+
+    preproc_launches = device_preproc_phase(dev, hash_cubes)
 
     csrc = "vid_dup_finder_lib_tpu_torch/csrc/"
     kernels = [
         dict(name="hash_dct_kernel", route="cuda", source=csrc + "hash_dct.cu",
              replaces="vid_dup_finder_lib_tpu/ops/hash_pallas.py:58",
              launches=launches["hash_cubes"], max_abs_err=int(diff.max()),
-             ms=k1_ms, plain_ms=k1_plain_ms),
+             ms=k1_ms, plain_ms=k1_plain_ms,
+             new_phase_launches={"device_preproc_1080p": preproc_launches,
+                                 "cli": cli["hash_cubes"]}),
         dict(name="band_counts_kernel", route="cuda", source=csrc + "hamming_band.cu",
              replaces="vid_dup_finder_lib_tpu/ops/hamming_pallas.py:559",
              launches=launches["band_counts"], max_abs_err=k2_err,
              ms=k2_ms, plain_ms=k2_plain_ms,
              refs_launches=refs_launches["band_counts"], refs_max_abs_err=k2_refs_err,
-             refs_ms=k2_refs_ms, refs_plain_ms=k2_refs_plain_ms),
+             refs_ms=k2_refs_ms, refs_plain_ms=k2_refs_plain_ms,
+             new_phase_launches={f"library_1m_{k}": v["band_counts"] for k, v in lib_launches.items()}),
         dict(name="band_pack_kernel", route="cuda", source=csrc + "hamming_band.cu",
              replaces="vid_dup_finder_lib_tpu/ops/hamming_pallas.py:130",
              launches=launches["band_pack"], max_abs_err=k3_err,
              ms=k3_ms, plain_ms=k3_plain_ms,
              refs_launches=refs_launches["band_pack"], refs_max_abs_err=k3_refs_err,
-             refs_ms=k3_refs_ms, refs_plain_ms=k3_refs_plain_ms),
+             refs_ms=k3_refs_ms, refs_plain_ms=k3_refs_plain_ms,
+             new_phase_launches={f"library_1m_{k}": v["band_pack"] for k, v in lib_launches.items()}),
         dict(name="band_sweep_kernel", route="cuda", source=csrc + "band_sweep.cu",
              replaces="vid_dup_finder_lib_tpu/ops/hamming_band.py:50",
              launches=band_launches["band_sweep"], max_abs_err=k4_err,
-             ms=k4_ms, plain_ms=k4_plain_ms),
+             ms=k4_ms, plain_ms=k4_plain_ms,
+             new_phase_launches={f"library_1m_{k}": v["band_sweep"] for k, v in lib_launches.items()}),
     ]
     print(json.dumps({"kernels": kernels}))
     print(smi)

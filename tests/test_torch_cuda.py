@@ -13,10 +13,16 @@ import torch
 
 import vid_dup_finder_lib_tpu_torch as tvdf
 from tests.test_torch_hamming import LIBRARIES, _library
+from tests.test_torch_preproc import RESIZE_CASES, _golden_cubes, _letterbox_frames, _raw_batch
 from tests.test_torch_refs import CASES
+from vid_dup_finder_lib_tpu.ops.letterbox import cropdetect_letterbox
+from vid_dup_finder_lib_tpu_torch.models.pipeline import hash_raw_frames_device
 from vid_dup_finder_lib_tpu_torch.ops import hamming_band as hb
 from vid_dup_finder_lib_tpu_torch.ops import hamming_cuda as hc
 from vid_dup_finder_lib_tpu_torch.ops import hash_kernel as hk
+from vid_dup_finder_lib_tpu_torch.ops.hamming_cuda import IncrementalDeviceLibrary
+from vid_dup_finder_lib_tpu_torch.ops.letterbox_device import cropdetect_letterbox_device
+from vid_dup_finder_lib_tpu_torch.ops.resize_device import resize_frames_device
 
 pytestmark = pytest.mark.cuda
 
@@ -127,3 +133,80 @@ def test_wrapper_rejects_strided_input(dev):
     cubes = torch.zeros((4, 16, 16, 16), dtype=torch.uint8, device=dev)
     with pytest.raises(ValueError, match="contiguous"):
         hk.hash_cubes(cubes.transpose(2, 3))
+
+
+def _library_on(dev, hashes, shuffled):
+    rng = np.random.default_rng(4)
+    rows = [hashes[k] for k in rng.permutation(len(hashes))] if shuffled else sorted(
+        hashes, key=lambda h: (h.duration, h.src_path.encode())
+    )
+    lib = IncrementalDeviceLibrary(dev, capacity=256)
+    for k0 in range(0, len(rows), 200):  # grows across capacity doublings
+        lib.append(np.stack([h.packed_u32() for h in rows[k0 : k0 + 200]]))
+    return lib, [h.src_path for h in rows] if shuffled else None
+
+
+@pytest.mark.parametrize("backend", ["device", "band"])
+@pytest.mark.parametrize("shuffled", [True, False])
+def test_library_search_on_cuda_equals_cpu(dev, backend, shuffled):
+    hashes = _hashes()
+    lib, paths = _library_on(dev, hashes, shuffled)
+    counters = (hc.band_counts, hc.band_pack, hb.band_sweep)
+    before = [f.launches for f in counters]
+    got = tvdf.search(hashes, 0.35, backend=backend, device=dev,
+                      device_library=lib, library_paths=paths)
+    launched = [f.launches - b for f, b in zip(counters, before)]
+    assert got == tvdf.search(hashes, 0.35, backend=backend, device="cpu")
+    assert launched[2] > 0 if backend == "band" else launched[0] > 0 and launched[1] > 0
+    if not shuffled:
+        s = tvdf.Search(hashes, device=dev)
+        s.attach_device_library(lib, None)
+        st = lib.state(s._library_order, s._self_search_bounds())
+        assert st.packed.data_ptr() == lib.packed.data_ptr()
+
+
+def test_library_refs_on_cuda_equals_cpu(dev):
+    hashes = _hashes()
+    refs = [h.with_src_path(f"r{i}") for i, h in enumerate(hashes[::6])]
+    for shuffled in (True, False):
+        lib, paths = _library_on(dev, hashes, shuffled)
+        got = tvdf.search_with_references(refs, hashes, 0.35, device=dev,
+                                          device_library=lib, library_paths=paths)
+        assert got == tvdf.search_with_references(refs, hashes, 0.35, device="cpu")
+
+
+def test_library_on_cuda_refuses_a_cpu_search(dev):
+    hashes = _hashes()
+    lib, paths = _library_on(dev, hashes, True)
+    with pytest.raises(ValueError, match="lies on cuda"):
+        tvdf.search(hashes, 0.35, device="cpu", device_library=lib, library_paths=paths)
+
+
+def test_resize_bit_exact_on_cuda_with_tf32_enabled(dev):
+    """The caller turns TF32 on for the whole process; the resize's scoped
+    guard must still give the golden cubes, and leave TF32 on."""
+    saved = torch.get_float32_matmul_precision()
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = True
+        for case in RESIZE_CASES.values():
+            (h, w), crop = case
+            frames = np.random.default_rng(2).integers(0, 256, (4, 16, h, w), dtype=np.uint8)
+            got = resize_frames_device(torch.from_numpy(frames).to(dev), crop)
+            np.testing.assert_array_equal(got.cpu().numpy(), _golden_cubes(frames, [crop] * 4))
+            assert torch.backends.cuda.matmul.allow_tf32
+    finally:
+        torch.set_float32_matmul_precision(saved)
+
+
+def test_preproc_on_cuda_equals_cpu(dev):
+    frames = _letterbox_frames()
+    crops = cropdetect_letterbox_device(torch.from_numpy(frames).to(dev))
+    assert crops == cropdetect_letterbox_device(torch.from_numpy(frames))
+    raw = _raw_batch()
+    before = hk.hash_cubes.launches
+    got = hash_raw_frames_device(raw, device=dev)
+    assert hk.hash_cubes.launches == before + 1
+    host_crops = [cropdetect_letterbox(list(v)) for v in raw]
+    want = hk.hash_cubes_plain(torch.from_numpy(_golden_cubes(raw, host_crops)))
+    d = np.bitwise_count((got.cpu() ^ want).numpy().view(np.uint32)).sum(1)
+    assert d.max() <= 2, d

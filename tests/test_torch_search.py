@@ -16,6 +16,7 @@ import torch
 import vid_dup_finder_lib_tpu as jvdf
 import vid_dup_finder_lib_tpu_torch as tvdf
 from tests.test_torch_hamming import _flip
+from vid_dup_finder_lib_tpu_torch.ops.hamming_cuda import IncrementalDeviceLibrary
 from vid_dup_finder_lib_tpu_torch.search import Search
 
 ORACLE = os.path.join(os.path.dirname(__file__), "oracles", "reference_vids_hashes.json")
@@ -100,14 +101,28 @@ def test_unknown_backend_raises():
 
 
 def test_device_library_paths_are_not_ported():
-    s = Search(_oracle(), device="cpu")
+    """The three library methods that raised NotImplementedError before
+    the library was ported now work on the Search's device."""
+    hashes = _oracle()
+    s = Search(hashes, device="cpu")
     assert s.device == torch.device("cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        s.attach_device_library(None, None)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        s._ensure_cands_dev()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Search._library_rows(None, [0])
+    assert s._ensure_cands_dev() is None  # no library attached
+    lib = IncrementalDeviceLibrary("cpu")
+    lib.append(np.stack([h.packed_u32() for h in hashes]))
+    paths = [h.src_path for h in hashes]
+    s.attach_device_library(lib, paths)
+    order = [paths.index(e.src_path) for e in s.entries]
+    np.testing.assert_array_equal(s._library_order, order)
+    np.testing.assert_array_equal(
+        s._ensure_cands_dev()[: len(hashes)].numpy().view(np.uint32),
+        np.stack([e.packed_u32() for e in s.entries]),
+    )
+    np.testing.assert_array_equal(
+        Search._library_rows(lib, [2, 0]), np.stack([hashes[2].packed_u32(), hashes[0].packed_u32()])
+    )
+    assert tvdf.search(hashes, device="cpu", device_library=lib, library_paths=paths) == (
+        jvdf.search(hashes, backend="host")
+    )
 
 
 def test_public_surface_matches_jax_package():

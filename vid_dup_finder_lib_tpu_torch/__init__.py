@@ -9,9 +9,21 @@ single-video builder, ingest) are the JAX package's own, imported rather
 than copied; none of them imports jax.  This package never imports jax.
 
 Device entry points take an explicit ``device`` (``None`` = PyTorch's
-default device): ``search``, ``search_with_references``,
-``models.pipeline.hash_videos``, ``ops.hash_kernel.hash_cubes``,
-``ops.hamming.banded_adjacency``, ``ops.hamming.refs_adjacency``.
+default device), or a tensor or library that lies on one:
+
+* search: ``search`` and ``search_with_references`` (both also over a
+  resident library, ``device_library=`` / ``library_paths=``),
+  ``ops.hamming.banded_adjacency``, ``ops.hamming.refs_adjacency``;
+* the growing library: ``ops.hamming_cuda.IncrementalDeviceLibrary``
+  (``append``, ``state``), ``convert.library_from_numpy``;
+* hashing: ``models.pipeline.hash_videos`` (``device_preproc=``),
+  ``models.pipeline.hash_raw_frames_device``, ``ops.hash_kernel.hash_cubes``;
+* device preprocessing: ``ops.letterbox_device.cropdetect_letterbox_device``,
+  ``ops.resize_device.resize_frames_device``;
+* the hash cache ``cache.VideoHashFilesystemCache(..., device=)`` and the
+  CLI, ``app.run_app(argv, device=)`` or ``python -m
+  vid_dup_finder_lib_tpu_torch.app`` (device from ``VDF_TORCH_DEVICE``,
+  default ``cuda``).
 """
 
 from .crop import Crop

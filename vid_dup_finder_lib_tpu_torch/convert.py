@@ -3,6 +3,9 @@
 * :func:`pm1_to_packed` turns the +/-1 operand of a JAX
   ``PallasSearchState.pm1`` back into packed rows;
 * :func:`search_state_from_numpy` builds the port's ``SearchState``;
+* :func:`library_from_numpy` carries the rows of a JAX
+  ``IncrementalDeviceLibrary`` (``np.asarray(lib._packed[:lib.n])``) to
+  the port's library;
 * :func:`d3_from_numpy` takes ``hash_pallas._d3_operator()``'s array to
   the port's device operator.
 """
@@ -13,7 +16,7 @@ import numpy as np
 import torch
 
 from .definitions import HASH_BITS_PADDED, HASH_WORDS32
-from .ops.hamming_cuda import SearchState
+from .ops.hamming_cuda import IncrementalDeviceLibrary, SearchState
 from .ops.hash_kernel import d3_device_layout
 from .utils.device import resolve_device
 
@@ -37,6 +40,17 @@ def search_state_from_numpy(
 ) -> SearchState:
     """The port's resident search state for a duration-sorted library."""
     return SearchState(packed_u32, bounds, resolve_device(device))
+
+
+def library_from_numpy(
+    packed_u32: np.ndarray, device: torch.device | str | None = None
+) -> IncrementalDeviceLibrary:
+    """A port library on ``device`` holding ``packed_u32`` (uint32[n, 32])
+    as its rows, in the same insertion order."""
+    packed_u32 = np.asarray(packed_u32)
+    lib = IncrementalDeviceLibrary(device, capacity=max(1, packed_u32.shape[0]))
+    lib.append(packed_u32)
+    return lib
 
 
 def d3_from_numpy(

@@ -56,16 +56,21 @@ def banded_adjacency(
 
 def refs_adjacency(
     refs_packed: np.ndarray,
-    cands_packed: np.ndarray,
+    cands_packed: np.ndarray | torch.Tensor,
     lo: np.ndarray,
     hi: np.ndarray,
     tolerance_int: int,
     device: torch.device | str | None = None,
+    n_cands: int | None = None,
 ) -> tuple[np.ndarray, np.ndarray]:
     """All pairs (i, j), lo[i] <= j < hi[i], with hamming <= tolerance_int,
     as int64 arrays in lexicographic order; empty windows (hi <= lo) give
     no pairs.  ``refs_packed``: uint32[r, 32], ``cands_packed``:
     uint32[n, 32] in duration order (the contract of
-    ``hamming_pallas.refs_adjacency_pallas``)."""
-    state = RefsState(refs_packed, cands_packed, lo, hi, resolve_device(device))
+    ``hamming_pallas.refs_adjacency_pallas``), or the candidates resident
+    on ``device`` as an int32[>= n_pad, 32] tensor with ``n_cands`` rows
+    first (the counterpart of its ``cands_dev`` / ``n_cands``)."""
+    state = RefsState(
+        refs_packed, cands_packed, lo, hi, resolve_device(device), n_cands
+    )
     return refs_adjacency_cuda(state, tolerance_int)

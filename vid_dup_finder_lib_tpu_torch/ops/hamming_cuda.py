@@ -2,8 +2,10 @@
 
 Counterpart of the parts of ``vid_dup_finder_lib_tpu/ops/hamming_pallas.py``
 on the search paths (``PallasSearchState``, ``_RefsState``,
-``_launch_metadata``, ``_build_chunk_counts``, ``_build_chunk``,
-``banded_adjacency_pallas``, ``refs_adjacency_pallas``).
+``IncrementalDeviceLibrary``, ``_launch_metadata``, ``_build_chunk_counts``,
+``_build_chunk``, ``banded_adjacency_pallas``, ``refs_adjacency_pallas``).
+A state's matrices are uploaded from the host, or taken from rows already
+resident on the device (:class:`IncrementalDeviceLibrary`).
 
 A sweep compares the rows of one packed matrix with the columns of
 another, each row with a contiguous window of columns:
@@ -38,6 +40,7 @@ import torch
 
 from ..definitions import HASH_BITS_PADDED, HASH_WORDS32
 from ..utils import cuda_build
+from ..utils.device import resolve_device
 
 TILE = 128  # rows per row tile == columns per column tile (csrc TILE)
 WORDS_PER_COL = TILE // 32  # packed words per column of a tile
@@ -100,6 +103,37 @@ def _tiled(packed_u32: np.ndarray, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(host.view(np.int32)).to(device)
 
 
+def _matrix(
+    packed: np.ndarray | torch.Tensor, n: int | None, device: torch.device,
+    what: str,
+) -> tuple[torch.Tensor, int]:
+    """A sweep operand and its row count: a host uint32[n, 32] matrix is
+    tiled and uploaded; a resident int32[>= n_pad, 32] tensor on ``device``
+    (``n`` rows, then anything) becomes its first n_pad rows, a view that
+    shares its storage.  Rows in [n, n_pad) of a resident tensor may hold
+    anything: the kernels and plain versions never match a column at or
+    past ``n``, and pad rows carry no window."""
+    if not isinstance(packed, torch.Tensor):
+        packed = _packed_rows(packed, what)
+        return _tiled(packed, device), packed.shape[0]
+    if n is None:
+        raise ValueError(f"{what}: a resident tensor needs its row count n")
+    n_pad = -(-n // TILE) * TILE
+    if (
+        packed.dtype != torch.int32 or packed.ndim != 2
+        or packed.shape[1] != HASH_WORDS32 or packed.shape[0] < n_pad
+    ):
+        raise ValueError(
+            f"{what} must be int32[>= {n_pad}, {HASH_WORDS32}], got"
+            f" {packed.dtype}{list(packed.shape)}"
+        )
+    if packed.device != device:
+        raise ValueError(f"{what} lies on {packed.device}, the state on {device}")
+    if not packed.is_contiguous():
+        raise ValueError(f"{what} must be contiguous")
+    return packed[:n_pad], n
+
+
 class SearchState:
     """The packed library resident on a device, with its band metadata.
 
@@ -113,22 +147,27 @@ class SearchState:
       device int32 tensors (``*_dev``) for the kernels.
     * ``n``: the number of columns (the kernels' column clamp), here also
       the number of rows.
+
+    ``packed`` is a host uint32[n, 32] matrix (tiled and uploaded) or a
+    resident int32[>= n_pad, 32] tensor on ``device`` holding ``n`` rows
+    first (:class:`IncrementalDeviceLibrary`), of which the state keeps a
+    view.
     """
 
     def __init__(
         self,
-        packed_u32: np.ndarray,
+        packed: np.ndarray | torch.Tensor,
         bounds: np.ndarray,
         device: torch.device,
+        n: int | None = None,
     ) -> None:
-        packed_u32 = _packed_rows(packed_u32, "packed")
-        n = packed_u32.shape[0]
+        self.device = torch.device(device)
+        self.packed, n = _matrix(packed, n, self.device, "packed")
         bounds = np.asarray(bounds, dtype=np.int64)
         if bounds.shape != (n,):
             raise ValueError(f"bounds must be [{n}], got {bounds.shape}")
         if n >= 2**31 - TILE:
             raise ValueError(f"{n} hashes exceed the int32 index range")
-        self.device = torch.device(device)
         self.n = n
         self.n_row_tiles = -(-n // TILE)
         self.n_pad = self.n_row_tiles * TILE
@@ -140,7 +179,6 @@ class SearchState:
 
         bounds_pad = np.full(self.n_pad, -1, dtype=np.int32)
         bounds_pad[:n] = clamped
-        self.packed = _tiled(packed_u32, self.device)
         self.rows = self.cols = self.packed
         self.row_lo = None
         self.bounds = torch.from_numpy(bounds_pad).to(self.device)
@@ -170,19 +208,25 @@ class RefsState:
       :func:`refs_launch_metadata`, host and device (``*_dev``).
     * ``n``: the number of candidates (the kernels' column clamp);
       ``n_rows``: the number of references.
+
+    ``cands`` is a host uint32[n, 32] matrix or a resident int32[>= n_pad,
+    32] tensor on ``device`` with ``n_cands`` rows first (then only the
+    references travel host to device).
     """
 
     def __init__(
         self,
         refs_u32: np.ndarray,
-        cands_u32: np.ndarray,
+        cands: np.ndarray | torch.Tensor,
         lo: np.ndarray,
         hi: np.ndarray,
         device: torch.device,
+        n_cands: int | None = None,
     ) -> None:
+        self.device = torch.device(device)
         refs_u32 = _packed_rows(refs_u32, "refs_packed")
-        cands_u32 = _packed_rows(cands_u32, "cands_packed")
-        r, n = refs_u32.shape[0], cands_u32.shape[0]
+        self.cols, n = _matrix(cands, n_cands, self.device, "cands_packed")
+        r = refs_u32.shape[0]
         lo = np.asarray(lo, dtype=np.int64)
         hi = np.asarray(hi, dtype=np.int64)
         if lo.shape != (r,) or hi.shape != (r,):
@@ -191,7 +235,6 @@ class RefsState:
             )
         if max(r, n) >= ROW_LO_SENTINEL:
             raise ValueError(f"{max(r, n)} hashes exceed the index range")
-        self.device = torch.device(device)
         self.n = n
         self.n_rows = r
         self.n_row_tiles = -(-r // TILE)
@@ -206,7 +249,6 @@ class RefsState:
         self.slots = int(self.n_ct.max()) if r and n else 0
 
         self.rows = _tiled(refs_u32, self.device)
-        self.cols = _tiled(cands_u32, self.device)
         self.row_lo = torch.from_numpy(row_lo.astype(np.int32)).to(self.device)
         self.bounds = torch.from_numpy(bounds.astype(np.int32)).to(self.device)
         self.first_ct_dev = torch.from_numpy(
@@ -224,6 +266,99 @@ class RefsState:
 
 
 SweepState = SearchState | RefsState  # what the sweep kernels take
+
+
+class IncrementalDeviceLibrary:
+    """Append-only packed-hash store resident on one device (counterpart
+    of ``hamming_pallas.IncrementalDeviceLibrary``, without its chunked
+    store).
+
+    ``packed`` is an int32[capacity, 32] tensor on ``device`` whose first
+    ``n`` rows are the appended hashes in insertion order; the rest are
+    zero until appended.  :meth:`append` uploads only the new rows, into
+    the buffer in place.  The capacity is a multiple of the 128-row tile
+    and doubles when an append needs more: growth allocates the new
+    buffer and copies the old rows across, so for that moment the device
+    holds both, three times the old buffer's bytes.
+
+    :meth:`state` hands the rows to a :class:`SearchState` in a
+    duration-sorted order: zero-copy (a view of ``packed``) when the order
+    is the identity over all ``n`` rows, otherwise through one
+    ``index_select`` gather.  A later :meth:`append` may write rows past a
+    zero-copy state's ``n`` into the storage it shares; the sweeps never
+    read a column at or past their state's ``n``, so the state stays
+    correct.
+    """
+
+    def __init__(
+        self, device: torch.device | str | None = None, capacity: int = 4096
+    ) -> None:
+        self.device = resolve_device(device)
+        cap = -(-max(TILE, int(capacity)) // TILE) * TILE
+        self.packed = torch.zeros((cap, HASH_WORDS32), dtype=torch.int32, device=self.device)
+        self.n = 0
+
+    @property
+    def capacity(self) -> int:
+        return self.packed.shape[0]
+
+    def append(self, packed_rows: np.ndarray) -> None:
+        """Append uint32[k, 32] rows.  The rows are copied: a later change
+        to the caller's array does not reach the library."""
+        rows = _packed_rows(packed_rows, "packed_rows")
+        k = rows.shape[0]
+        if k == 0:
+            return
+        if self.n + k > self.capacity:
+            self._grow(self.n + k)
+        if not rows.flags.writeable:  # torch.from_numpy takes writable arrays only
+            rows = rows.copy()
+        self.packed[self.n : self.n + k].copy_(torch.from_numpy(rows.view(np.int32)))
+        self.n += k
+
+    def _grow(self, need: int) -> None:
+        cap = self.capacity
+        while cap < need:
+            cap *= 2
+        grown = torch.zeros((cap, HASH_WORDS32), dtype=torch.int32, device=self.device)
+        grown[: self.n].copy_(self.packed[: self.n])
+        self.packed = grown
+
+    def sorted_rows(self, order: np.ndarray) -> torch.Tensor:
+        """Rows ``order`` (insertion index per sorted position) as an
+        int32[>= n_pad, 32] tensor, ``len(order)`` rows first: ``packed``
+        itself when ``order`` is the identity over all ``n`` rows and the
+        capacity covers n_pad, else a gather whose pad rows repeat row 0."""
+        order = np.asarray(order, dtype=np.int64)
+        if order.ndim != 1:
+            raise ValueError(f"order must be 1-D, got shape {order.shape}")
+        n = order.shape[0]
+        n_pad = -(-n // TILE) * TILE
+        if n and (int(order.min()) < 0 or int(order.max()) >= self.n):
+            raise ValueError(
+                f"order holds rows outside the library's {self.n}"
+                f" ([{int(order.min())}, {int(order.max())}])"
+            )
+        if n == self.n and self.capacity >= n_pad and np.array_equal(
+            order, np.arange(n)
+        ):
+            return self.packed
+        idx = np.zeros(n_pad, dtype=np.int64)
+        idx[:n] = order
+        return self.packed.index_select(0, torch.from_numpy(idx).to(self.device))
+
+    def state(self, order: np.ndarray, bounds: np.ndarray) -> SearchState:
+        """Duration-sorted search state over rows ``order`` with the
+        sorted rows' exclusive column ``bounds`` (:meth:`sorted_rows`)."""
+        return SearchState(self.sorted_rows(order), bounds, self.device, n=len(order))
+
+    def take_rows(self, idx) -> np.ndarray:
+        """uint32[len(idx), 32]: a few rows, fetched to the host."""
+        idx = np.asarray(idx, dtype=np.int64)
+        if idx.size and (int(idx.min()) < 0 or int(idx.max()) >= self.n):
+            raise ValueError(f"rows {idx.tolist()} outside the library's {self.n}")
+        rows = self.packed.index_select(0, torch.from_numpy(idx).to(self.device))
+        return rows.cpu().numpy().view(np.uint32)
 
 
 # -- plain versions ----------------------------------------------------------

@@ -23,6 +23,7 @@ per hash.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 
 import numpy as np
@@ -103,23 +104,33 @@ def _pack_signs(coeffs: torch.Tensor) -> torch.Tensor:
     return torch.where(words >= 2**31, words - 2**32, words).to(torch.int32)
 
 
+@contextlib.contextmanager
+def full_fp32_matmul():
+    """Run the enclosed float32 matrix products in full fp32 on every
+    backend (no TF32 on CUDA, no reduced-precision fp32 path on the CPU),
+    and restore the caller's ``torch.get_float32_matmul_precision()`` on
+    exit.  The setting is process-wide while the block runs."""
+    saved = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("highest")
+    try:
+        yield
+    finally:
+        torch.set_float32_matmul_precision(saved)
+
+
 def hash_cubes_plain(
     cubes_u8: torch.Tensor, d3: torch.Tensor | None = None
 ) -> torch.Tensor:
     """Plain PyTorch version of the hash kernel (fp32 matmul, sign, pack).
 
-    On CUDA the matmul must run in full fp32: TF32 is refused."""
+    The matmul runs under :func:`full_fp32_matmul`: TF32 flips the signs
+    of near-zero DCT coefficients."""
     _check_cubes(cubes_u8)
     op = _operator_for(cubes_u8, d3)
-    if cubes_u8.device.type == "cuda":
-        torch.backends.cuda.matmul.allow_tf32 = False
-        if torch.get_float32_matmul_precision() != "highest":
-            raise RuntimeError(
-                "hash_cubes_plain needs torch.get_float32_matmul_precision()"
-                " == 'highest' (TF32 flips near-zero DCT signs)"
-            )
     x = cubes_u8.reshape(-1, CUBE).to(torch.float32) - 128.0
-    return _pack_signs(x @ op)
+    with full_fp32_matmul():
+        coeffs = x @ op
+    return _pack_signs(coeffs)
 
 
 def hash_cubes(
