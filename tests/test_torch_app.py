@@ -21,16 +21,19 @@ from vid_dup_finder_lib_tpu.app.app_fns import run_app as jax_run_app
 from vid_dup_finder_lib_tpu.cache.hash_cache import (
     VideoHashFilesystemCache as JaxCache,
 )
-from vid_dup_finder_lib_tpu.definitions import Cropdetect
-from vid_dup_finder_lib_tpu.models.builder import CreationOptions
+from vid_dup_finder_lib_tpu.definitions import Cropdetect as JaxCropdetect
+from vid_dup_finder_lib_tpu.models.builder import CreationOptions as JaxCreationOptions
 from vid_dup_finder_lib_tpu.ops import hash_kernel as jax_hash_kernel
 from vid_dup_finder_lib_tpu_torch.app import app_fns
 from vid_dup_finder_lib_tpu_torch.app.app_fns import run_app
 from vid_dup_finder_lib_tpu_torch.cache import VideoHashFilesystemCache
+from vid_dup_finder_lib_tpu_torch.definitions import Cropdetect
 from vid_dup_finder_lib_tpu_torch.models import pipeline
+from vid_dup_finder_lib_tpu_torch.models.builder import CreationOptions
 
 DATA_DIR = os.path.join(os.path.dirname(__file__), "data")
 OPTS = CreationOptions(cropdetect=Cropdetect.LETTERBOX)
+JAX_OPTS = JaxCreationOptions(cropdetect=JaxCropdetect.LETTERBOX)
 
 
 @pytest.fixture(scope="module")
@@ -110,11 +113,11 @@ def test_port_cache_is_read_by_the_jax_cache(vids, tmp_path):
     assert cache.update_using_fs(vids) == len(vids)
     assert cache.update_using_fs(vids) == 0
     cache.save()
-    theirs = JaxCache(path, creation_options=OPTS)
+    theirs = JaxCache(path, creation_options=JAX_OPTS)
     assert theirs.update_using_fs(vids) == 0
     ours_h = cache.fetch_hashes(vids)
     assert [h.src_path for h in theirs.fetch_hashes(vids)] == [h.src_path for h in ours_h]
-    jax_fresh = JaxCache(tmp_path / "jax.json", creation_options=OPTS)
+    jax_fresh = JaxCache(tmp_path / "jax.json", creation_options=JAX_OPTS)
     jax_fresh.update_using_fs(vids)
     for mine, ref in zip(ours_h, jax_fresh.fetch_hashes(vids)):
         assert mine.duration == ref.duration
@@ -126,7 +129,7 @@ def test_cache_load_one_and_device_preproc(vids, tmp_path, monkeypatch):
     cache = VideoHashFilesystemCache(tmp_path / "c.json", creation_options=OPTS, device="cpu")
     assert cache.device == torch.device("cpu")
     h = cache.fetch_update(vids[0])
-    ref = JaxCache(tmp_path / "j.json", creation_options=OPTS)
+    ref = JaxCache(tmp_path / "j.json", creation_options=JAX_OPTS)
     monkeypatch.undo()
     assert h.hamming_distance(ref.fetch_update(vids[0])) <= 2
     _refuse_jax_hash(monkeypatch)

@@ -14,7 +14,7 @@ import torch
 import vid_dup_finder_lib_tpu as jvdf
 import vid_dup_finder_lib_tpu_torch as tvdf
 from tests.test_torch_hamming import LIBRARIES, _library
-from tests.test_torch_search import _planted_library
+from tests.test_torch_search import _planted_library, jax_hashes, same_groups
 from vid_dup_finder_lib_tpu.ops.hamming import banded_adjacency_host
 from vid_dup_finder_lib_tpu.ops.hamming_band import (
     banded_adjacency_band as jax_banded_adjacency_band,
@@ -128,7 +128,7 @@ def library():
 def test_search_band_matches_jax_and_other_backends(library, tolerance):
     hashes, planted, _ = library
     ours = tvdf.search(hashes, tolerance, backend="band", device=CPU)
-    assert ours == jvdf.search(hashes, tolerance, backend="band")
+    assert same_groups(ours, jvdf.search(jax_hashes(hashes), tolerance, backend="band"))
     for backend in ("device", "host"):
         assert ours == tvdf.search(hashes, tolerance, backend=backend, device=CPU)
     if tolerance == 0.35:

@@ -210,3 +210,102 @@ def test_preproc_on_cuda_equals_cpu(dev):
     want = hk.hash_cubes_plain(torch.from_numpy(_golden_cubes(raw, host_crops)))
     d = np.bitwise_count((got.cpu() ^ want).numpy().view(np.uint32)).sum(1)
     assert d.max() <= 2, d
+
+
+# -- K2 on the tensor cores: counts equal to the plain version's -------------
+
+
+def _flip_exactly(words, rng, count):
+    """``words`` with exactly ``count`` of its 1024 storage bits flipped
+    (pad bits included)."""
+    words = words.copy()
+    for b in rng.choice(1024, count, replace=False):
+        words[b // 32] ^= np.uint32(1) << np.uint32(b % 32)
+    return words
+
+
+def _planted_at(n, tol, seed):
+    """n hashes with random nonzero pad bits; every fifth row is followed
+    by a copy at Hamming distance exactly ``tol`` and then one at
+    ``tol + 1`` (both capped at 1024); durations narrow enough that every
+    band spans several column tiles."""
+    rng = np.random.default_rng(seed)
+    packed = rng.integers(0, 2**32, (n, 32), dtype=np.uint64).astype(np.uint32)
+    packed[:, -1] |= rng.integers(1, 2**24, n, dtype=np.uint64).astype(np.uint32) << np.uint32(8)
+    for s in range(0, n - 2, 5):
+        packed[s + 1] = _flip_exactly(packed[s], rng, min(max(tol, 0), 1024))
+        packed[s + 2] = _flip_exactly(packed[s], rng, min(max(tol + 1, 0), 1024))
+    durs = np.sort(rng.integers(100, 130, n))
+    bounds = np.searchsorted(durs, (durs * 1.1).astype(np.int64), side="right")
+    return packed, bounds
+
+
+def _k2_equal(st, tol):
+    before = hc.band_counts.launches
+    got = hc.band_counts(st, tol)
+    torch.cuda.synchronize()
+    assert hc.band_counts.launches == before + 1
+    want = hc.band_counts_plain(st, tol)
+    assert got.dtype == torch.int32 and got.shape == want.shape
+    assert torch.equal(got, want), int((got - want).abs().max())
+    return got
+
+
+@pytest.mark.parametrize("tol", [-1, 0, 1, 350, 511, 512, 1023, 1024, 1025, 5000])
+def test_k2_counts_equal_plain_at_tolerance_edges(dev, tol):
+    """Pairs planted at ham == tol and tol + 1, nonzero pad bits, n not a
+    multiple of 128."""
+    packed, bounds = _planted_at(1000, tol, seed=tol + 7)
+    st = hc.SearchState(packed, bounds, dev)
+    got = _k2_equal(st, tol)
+    if 0 <= tol <= 1023:  # every ham == tol pair counts, ham == tol + 1 does not
+        dist = np.bitwise_count(packed[0::5][:199] ^ packed[1::5][:199]).sum(1)
+        assert (dist == tol).all()
+        assert int(got.sum()) >= 199
+
+
+@pytest.mark.parametrize("n", [1, 2, 100, 127, 128, 129, 255, 256])
+@pytest.mark.parametrize("tol", [0, 350, 1024])
+def test_k2_small_and_single_tile(dev, n, tol):
+    packed, bounds = _planted_at(n, tol, seed=n)
+    _k2_equal(hc.SearchState(packed, bounds, dev), tol)
+
+
+@pytest.mark.parametrize("tol", [0, 350, 1023, 1024])
+@pytest.mark.parametrize("case", list(CASES))
+def test_k2_window_mode_equals_plain(dev, case, tol):
+    _k2_equal(hc.RefsState(*CASES[case](), dev), tol)
+
+
+@pytest.mark.parametrize("tol", [350, 1024])
+def test_k2_window_mode_planted_edges(dev, tol):
+    """References at ham == tol and tol + 1 from candidates inside their
+    windows, nonzero pad bits on both sides."""
+    cands, _ = _planted_at(1500, tol, seed=3)
+    rng = np.random.default_rng(4)
+    idx = np.arange(0, 1500, 7)
+    refs = np.stack([_flip_exactly(cands[i], rng, min(tol + (k % 2), 1024))
+                     for k, i in enumerate(idx)])
+    lo = np.maximum(idx - 200, 0)
+    hi = np.minimum(idx + 150, 1500)
+    st = hc.RefsState(refs, cands, lo, hi, dev)
+    got = _k2_equal(st, tol)
+    assert int(got.sum()) >= (len(idx) + 1) // 2
+
+
+def test_k2_state_after_a_later_append(dev):
+    """A zero-copy resident state whose pad rows a later ``append`` fills
+    with copies of its own rows: the window, not zero pad data, keeps them
+    out of the counts."""
+    packed, bounds = _planted_at(1000, 350, seed=11)
+    lib = IncrementalDeviceLibrary(dev, capacity=2048)
+    lib.append(packed)
+    n = lib.n
+    st = lib.state(np.arange(n), np.full(n, n))
+    assert st.packed.data_ptr() == lib.packed.data_ptr()
+    before = _k2_equal(st, 350)
+    lib.append(packed[n - n % hc.TILE :])  # copies of the last tile's rows
+    assert st.packed.data_ptr() == lib.packed.data_ptr() and st.packed[n:].any()
+    assert torch.equal(_k2_equal(st, 350), before)
+    grown = lib.state(np.arange(lib.n), np.full(lib.n, lib.n))
+    assert int(_k2_equal(grown, 350).sum()) >= int(before.sum()) + n % hc.TILE

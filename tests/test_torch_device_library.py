@@ -16,7 +16,7 @@ import vid_dup_finder_lib_tpu as jvdf
 import vid_dup_finder_lib_tpu_torch as tvdf
 from tests.test_search_device_library import _problem
 from tests.test_torch_hamming import _flip
-from tests.test_torch_search import _planted_library
+from tests.test_torch_search import _planted_library, jax_hashes, port_hashes, same_groups
 from vid_dup_finder_lib_tpu.ops import hamming_pallas as hp
 from vid_dup_finder_lib_tpu.ops.hamming import banded_adjacency_host
 from vid_dup_finder_lib_tpu_torch.convert import library_from_numpy
@@ -73,7 +73,7 @@ def test_library_search_matches_jax(planted, insertion, backend):
     ours = tvdf.search(
         hashes, TOL, backend=backend, device=CPU, device_library=lib, library_paths=paths
     )
-    assert ours == jvdf.search(hashes, TOL, backend="naive")
+    assert same_groups(ours, jvdf.search(jax_hashes(hashes), TOL, backend="naive"))
     assert {frozenset(g.contained_paths()) for g in ours} == groups
 
 
@@ -81,14 +81,16 @@ def test_library_search_matches_jax(planted, insertion, backend):
 def test_library_search_matches_jax_library(insertion):
     """Both packages over their own attached library, on the JAX
     package's device-library problem (random durations)."""
-    hashes, tol = _problem(seed=7)
+    theirs, tol = _problem(seed=7)
+    hashes = port_hashes(theirs)
     lib, paths = _library(hashes, insertion, seed=3)
     jlib = hp.IncrementalDeviceLibrary()
     jlib.append(lib.packed[: lib.n].numpy().view(np.uint32))
-    want = jvdf.search(hashes, tol, backend="pallas", device_library=jlib, library_paths=paths)
+    want = jvdf.search(theirs, tol, backend="pallas", device_library=jlib, library_paths=paths)
     assert len(want) >= 3
-    assert tvdf.search(hashes, tol, device=CPU, device_library=lib, library_paths=paths) == want
-    assert want == jvdf.search(hashes, tol, backend="naive")
+    got = tvdf.search(hashes, tol, device=CPU, device_library=lib, library_paths=paths)
+    assert same_groups(got, want)
+    assert want == jvdf.search(theirs, tol, backend="naive")
 
 
 @pytest.mark.parametrize("tol", [0, 350, 1100])
@@ -202,7 +204,8 @@ def test_seed_detaches_and_forgets_the_sort_check():
     """Fault in the reference: its ``seed()`` keeps ``_ctor_resorted``, so
     a later identity attach skips the spot-check of the library's order.
     The port resets it, and a misaligned library is refused."""
-    hashes, tol = _problem(seed=19, groups=2)
+    theirs, tol = _problem(seed=19, groups=2)
+    hashes = port_hashes(theirs)
     entries = _sorted(hashes)
     s = Search(entries[:-1], device=CPU)
     assert s._ctor_resorted is False
@@ -220,7 +223,7 @@ def test_seed_detaches_and_forgets_the_sort_check():
     right.append(_rows(entries))
     s.attach_device_library(right, None)
     got = s.search_self(tol)
-    want = jvdf.search(hashes, tol, backend="naive")
+    want = jvdf.search(theirs, tol, backend="naive")
     assert [sorted(g) for g in got if len(g) >= 2] == [sorted(g.contained_paths()) for g in want]
 
 
@@ -313,7 +316,7 @@ def test_refs_search_through_a_library(refs_problem, insertion, n_refs):
         refs, hashes, TOL, device=CPU, device_library=lib, library_paths=paths
     )
     assert ours == tvdf.search_with_references(refs, hashes, TOL, device=CPU)
-    assert ours == jvdf.search_with_references(refs, hashes, TOL)
+    assert same_groups(ours, jvdf.search_with_references(jax_hashes(refs), jax_hashes(hashes), TOL))
     assert any(g.reference.startswith("/ref/p") for g in ours)
 
 
@@ -322,10 +325,13 @@ def test_refs_search_matches_jax_library(refs_problem):
     lib, paths = _library(hashes, "shuffled")
     jlib = hp.IncrementalDeviceLibrary()
     jlib.append(lib.packed[: lib.n].numpy().view(np.uint32))
-    assert tvdf.search_with_references(
-        refs, hashes, TOL, device=CPU, device_library=lib, library_paths=paths
-    ) == jvdf.search_with_references(
-        refs, hashes, TOL, device_library=jlib, library_paths=paths
+    assert same_groups(
+        tvdf.search_with_references(
+            refs, hashes, TOL, device=CPU, device_library=lib, library_paths=paths
+        ),
+        jvdf.search_with_references(
+            jax_hashes(refs), jax_hashes(hashes), TOL, device_library=jlib, library_paths=paths
+        ),
     )
 
 

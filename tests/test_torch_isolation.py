@@ -1,6 +1,11 @@
 """The port stands apart from JAX, and never swaps the CPU in for a device.
 
-* Importing and running the port works with ``jax`` made unimportable.
+* Importing and running the port works with ``jax`` made unimportable, and
+  with the JAX package made unimportable as well; no source of the port,
+  nor ``chip_smoke.py``, imports either.
+* The port's copies of the JAX package's host code (sort key, greedy
+  replay, duration windows) behave as the originals; two faults of the
+  originals are repaired in the copies.
 * ``chip_smoke.py`` fails, and prints no result, on a host without CUDA,
   and also when it is alone in a directory.
 * A CPU tensor goes to a kernel's plain version without touching the
@@ -10,6 +15,7 @@
   moves to the CPU on its own.
 """
 
+import importlib
 import json
 import os
 import re
@@ -23,6 +29,7 @@ import pytest
 import torch
 
 import vid_dup_finder_lib_tpu_torch as tvdf
+from vid_dup_finder_lib_tpu_torch.cache import VideoHashFilesystemCache
 from vid_dup_finder_lib_tpu_torch.models.pipeline import hash_raw_frames_device, hash_videos
 from vid_dup_finder_lib_tpu_torch.ops import hamming_band as hb
 from vid_dup_finder_lib_tpu_torch.ops import hamming_cuda as hc
@@ -86,6 +93,100 @@ def test_port_sources_never_import_jax():
                     assert not pattern.search(fh.read()), f
 
 
+_JAX_PACKAGE_IMPORT = re.compile(
+    r"^\s*(from|import)\s+vid_dup_finder_lib_tpu\b(?!_torch)", re.M
+)
+
+
+def test_port_sources_never_import_the_jax_package():
+    sources = [os.path.join(REPO, "chip_smoke.py")]
+    for root, _, files in os.walk(PORT):
+        sources += [os.path.join(root, f) for f in files if f.endswith(".py")]
+    assert len(sources) > 40
+    for path in sources:
+        with open(path, encoding="utf-8") as fh:
+            text = fh.read()
+        assert not _JAX_PACKAGE_IMPORT.search(text), path
+    # the pattern does catch each form of such an import
+    for line in ("import vid_dup_finder_lib_tpu", "from vid_dup_finder_lib_tpu import x",
+                 "  from vid_dup_finder_lib_tpu.search import Search",
+                 "import vid_dup_finder_lib_tpu.ops.golden as g"):
+        assert _JAX_PACKAGE_IMPORT.search(line), line
+    assert not _JAX_PACKAGE_IMPORT.search("from vid_dup_finder_lib_tpu_torch import x")
+
+
+def test_port_runs_with_jax_and_the_jax_package_unimportable(tmp_path):
+    """Every module of the port imports, and search (every backend), the
+    references search (per reference, batched and over a resident
+    library), hashing, the cache and the CLI (its device from
+    ``VDF_TORCH_DEVICE``) run, with neither ``jax`` nor
+    ``vid_dup_finder_lib_tpu`` importable."""
+    from tests.fixtures import make_fixture_videos
+
+    data = os.path.join(REPO, "tests", "data")
+    make_fixture_videos(data)
+    code = textwrap.dedent(
+        f"""
+        import sys
+        sys.modules["jax"] = None  # any `import jax` now raises ImportError
+        sys.modules["vid_dup_finder_lib_tpu"] = None
+        import contextlib, importlib, io, json, pkgutil, runpy
+        import numpy as np
+        import vid_dup_finder_lib_tpu_torch as vdf
+        for m in pkgutil.walk_packages(vdf.__path__, vdf.__name__ + "."):
+            importlib.import_module(m.name)
+        from vid_dup_finder_lib_tpu_torch.cache import VideoHashFilesystemCache
+        from vid_dup_finder_lib_tpu_torch.models.pipeline import hash_videos
+        from vid_dup_finder_lib_tpu_torch.ops.hamming_cuda import IncrementalDeviceLibrary
+        from vid_dup_finder_lib_tpu_torch.search import BACKENDS
+
+        rng = np.random.default_rng(3)
+        packed = rng.integers(0, 2**32, (400, 32), dtype=np.uint64).astype(np.uint32)
+        packed[1::2] = packed[::2]
+        durs = np.repeat(np.sort(rng.integers(30, 7200, 200)), 2)
+        paths = [f"v{{i}}" for i in range(400)]
+        hashes = vdf.VideoHash.many_from_packed_u32(packed, paths, durs)
+        for backend in BACKENDS:
+            groups = vdf.search(hashes, 0.35, backend=backend, device="cpu")
+            assert len(groups) == 200, (backend, len(groups))
+        lib = IncrementalDeviceLibrary("cpu")
+        lib.append(packed)
+        for refs in (hashes[::40], hashes[::5]):  # per reference, batched
+            refs = [h.with_src_path("r" + h.src_path) for h in refs]
+            found = vdf.search_with_references(refs, hashes, 0.35, device="cpu")
+            assert len(found) == len(refs)
+            assert found == vdf.search_with_references(
+                refs, hashes, 0.35, device="cpu", device_library=lib, library_paths=paths)
+
+        videos = sorted(f"{data}/" + f for f in ("cat.1.mp4", "cat.2.mp4", "dog.1.mp4"))
+        hashed = hash_videos(videos, device="cpu")
+        assert all(isinstance(hashed[v], vdf.VideoHash) for v in videos)
+        cache = VideoHashFilesystemCache("{tmp_path}/c.json", device="cpu")
+        assert cache.update_using_fs(videos) == 3
+        assert [h.hash_bits().tolist() for h in cache.fetch_hashes(videos)] == (
+            [hashed[v].hash_bits().tolist() for v in videos])
+        sys.argv = ["vid-dup-finder", "--files", "{data}", "--cache-file",
+                    "{tmp_path}/cli.json", "--cropdetect", "letterbox", "--output-format", "json"]
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out), contextlib.suppress(SystemExit):
+            runpy.run_module("vid_dup_finder_lib_tpu_torch.app", run_name="__main__")
+        assert sorted(len(g["duplicates"]) for g in json.loads(out.getvalue())) == [3, 3]
+        loaded = [k for k, v in sys.modules.items() if v is not None and (
+            k.split(".")[0] in ("jax", "vid_dup_finder_lib_tpu"))]
+        assert not loaded, loaded
+        print("standalone-ok")
+        """
+    )
+    env = {k: v for k, v in os.environ.items() if not k.startswith("PYTHONPATH")}
+    env["VDF_TORCH_DEVICE"] = "cpu"
+    r = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO, env=env, capture_output=True,
+        text=True, timeout=600,
+    )
+    assert r.returncode == 0, r.stderr
+    assert "standalone-ok" in r.stdout
+
+
 def test_chip_smoke_fails_without_cuda():
     _skip_if_cuda()
     r = _run(["chip_smoke.py"])
@@ -114,8 +215,33 @@ def test_cuda_request_without_cuda_raises():
 
 
 def test_default_device_is_torch_default():
-    assert resolve_device(None) == torch.get_default_device()
+    """No device means the card, whatever torch's default device is: the
+    CPU is used only when the caller names it."""
     assert resolve_device("cpu") == torch.device("cpu")
+    if torch.cuda.is_available():
+        assert resolve_device(None) == torch.device("cuda", torch.cuda.current_device())
+    else:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            resolve_device(None)
+
+
+def test_entry_points_without_device_raise_without_cuda(tmp_path):
+    """Every public entry point called with no device asks for the card,
+    and raises on a host without one instead of running on the CPU."""
+    _skip_if_cuda()
+    hashes = tvdf.VideoHash.many_from_packed_u32(
+        np.zeros((2, 32), np.uint32), ["a", "b"], [10, 10])
+    calls = (
+        lambda: tvdf.search(hashes, 0.35),
+        lambda: tvdf.Search(hashes),
+        lambda: tvdf.search_with_references(hashes[:1], hashes, 0.35),
+        lambda: hash_videos([]),
+        lambda: hc.IncrementalDeviceLibrary(),
+        lambda: VideoHashFilesystemCache(tmp_path / "cache"),
+    )
+    for call in calls:
+        with pytest.raises(RuntimeError, match="is_available"):
+            call()
 
 
 def test_cpu_tensors_take_the_plain_versions(monkeypatch):
@@ -185,6 +311,7 @@ def test_cli_and_library_search_run_with_jax_unimportable(tmp_path):
         import numpy as np
         import vid_dup_finder_lib_tpu_torch as vdf
         from vid_dup_finder_lib_tpu_torch.ops.hamming_cuda import IncrementalDeviceLibrary
+        from vid_dup_finder_lib_tpu_torch.search import BACKENDS
         rng = np.random.default_rng(3)
         packed = rng.integers(0, 2**32, (400, 32), dtype=np.uint64).astype(np.uint32)
         packed[1::2] = packed[::2]
@@ -230,3 +357,150 @@ def test_kernel_build_without_nvcc_raises():
         pytest.skip("this host has a CUDA toolkit")
     with pytest.raises(RuntimeError, match="CUDA toolkit"):
         cuda_build.load_library()
+
+
+# -- the port's copies of the JAX package's host code --------------------------
+
+
+def _batch(n, seed, paths=None, durations=None):
+    rng = np.random.default_rng(seed)
+    packed = rng.integers(0, 2**32, (n, 32), dtype=np.uint64).astype(np.uint32)
+    paths = paths if paths is not None else [f"/v/{i:04d}" for i in range(n)]
+    durations = durations if durations is not None else rng.integers(30, 300, n)
+    return packed, list(paths), list(durations)
+
+
+def test_many_from_packed_u32_hands_out_a_read_only_view():
+    """Fault in the reference: its batch's ``packed_u32`` is the caller's
+    matrix itself, writable, so a write through the batch changes the
+    hashes behind it.  The port's is a read-only view."""
+    from vid_dup_finder_lib_tpu import VideoHash as JaxVideoHash
+
+    packed, paths, durs = _batch(6, 1)
+    theirs = JaxVideoHash.many_from_packed_u32(packed, paths, durs)
+    assert theirs.packed_u32.flags.writeable  # the fault
+    batch = tvdf.VideoHash.many_from_packed_u32(packed, paths, durs)
+    assert not batch.packed_u32.flags.writeable
+    with pytest.raises(ValueError, match="read-only"):
+        batch.packed_u32[0, 0] = 0
+    np.testing.assert_array_equal(batch.packed_u32, packed)
+    for h, row in zip(batch, packed):
+        np.testing.assert_array_equal(h.packed_u32(), row)
+        assert not h.hash.flags.writeable
+
+
+def test_non_ascii_paths_keep_the_batch_matrix(monkeypatch):
+    """Fault in the reference: a non-ASCII path sends ``Search.__init__``
+    to its Python-key sort, which drops the batch's packed matrix, so the
+    search rebuilds it hash by hash.  The port sorts the matrix with the
+    entries, and the groups are unchanged."""
+    import vid_dup_finder_lib_tpu as jvdf
+    from tests.test_torch_search import jax_hashes, same_groups
+    search_mod = importlib.import_module("vid_dup_finder_lib_tpu_torch.search")
+
+    packed, _, _ = _batch(300, 2)
+    packed[1::2] = packed[::2]
+    paths = [f"/v/{'é' if i % 3 else 'e'}{299 - i:04d}" for i in range(300)]
+    durs = [60 + (i // 2) % 7 for i in range(300)]
+    batch = tvdf.VideoHash.many_from_packed_u32(packed, paths, durs)
+    s = tvdf.Search(batch, device="cpu")
+    assert s._ctor_resorted is None  # the Python-key sort, as in the JAX package
+    assert s._packed_mat is not None
+    np.testing.assert_array_equal(
+        s._packed_mat, np.stack([e.packed_u32() for e in s.entries])
+    )
+    assert jvdf.Search(jax_hashes(batch))._packed_mat is None  # the fault
+    want = tvdf.search(list(batch), 0.35, backend="host", device="cpu")
+    monkeypatch.setattr(
+        search_mod, "hashes_to_matrix",
+        lambda *a: pytest.fail("the matrix was rebuilt from the entries"),
+    )
+    for backend in ("host", "device", "band"):
+        got = tvdf.search(batch, 0.35, backend=backend, device="cpu")
+        assert got == want and len(got) == 150
+    assert same_groups(want, jvdf.search(jax_hashes(batch), 0.35, backend="host"))
+
+
+_SORT_PATHS = [
+    "/v/b", "/v/a", "/v/\udcff", "/v/\udc80x", "/v/é", "/v/ü", "/v/Z", "/v/z",
+    "/v/a/b", "/v/a b", "/v/中", "/v/\U0001f600", "/v/é",
+]
+
+
+@pytest.mark.parametrize("durations", ["equal", "mixed"])
+def test_sort_key_order_matches_the_jax_package(durations):
+    """Bytewise (duration, path) order over non-ASCII and surrogate-escaped
+    paths: the port's entries come in the JAX package's order."""
+    import vid_dup_finder_lib_tpu as jvdf
+    from tests.test_torch_search import jax_hashes
+    from vid_dup_finder_lib_tpu_torch.search import _sort_key
+
+    n = len(_SORT_PATHS)
+    durs = [60] * n if durations == "equal" else [60 + k % 3 for k in range(n)]
+    packed, _, _ = _batch(n, 3)
+    ours = tvdf.VideoHash.many_from_packed_u32(packed, _SORT_PATHS, durs)
+    got = [e.src_path for e in tvdf.Search(ours, device="cpu").entries]
+    assert got == [e.src_path for e in jvdf.Search(jax_hashes(ours)).entries]
+    assert got == [h.src_path for h in sorted(ours, key=_sort_key)]
+    assert got == [
+        p for _, p in sorted(zip(durs, _SORT_PATHS), key=lambda t: (t[0], os.fsencode(t[1])))
+    ]
+
+
+def _flip_bits(words, bits):
+    words = words.copy()
+    for b in bits:
+        words[b // 32] ^= np.uint32(1) << np.uint32(b % 32)
+    return words
+
+
+@pytest.mark.parametrize("backend", ["auto", "device", "band", "host", "naive"])
+def test_greedy_replay_on_a_chain_matches_the_jax_package(backend):
+    """A chain of ten hashes, each 200 bits from the next and so every
+    second one 400 apart (over a tolerance of 350): the greedy consume
+    takes b into a's group, which leaves c to start its own with d, and so
+    on.  The last five are the first five with every bit flipped, which
+    puts /o/a 200 bits from /c/e; their durations step by about 10%, so
+    the windows decide which links count."""
+    import vid_dup_finder_lib_tpu as jvdf
+    from tests.test_torch_search import jax_hashes, same_groups
+
+    rng = np.random.default_rng(4)
+    base = rng.integers(0, 2**32, 32, dtype=np.uint64).astype(np.uint32)
+    order = rng.permutation(1000)
+    chain = [base]
+    for k in range(4):
+        chain.append(_flip_bits(chain[-1], order[200 * k : 200 * (k + 1)]))
+    other = [_flip_bits(c, range(1000)) for c in chain]
+    packed = np.stack(chain + other)
+    paths = [f"/c/{x}" for x in "abcde"] + [f"/o/{x}" for x in "abcde"]
+    durs = [100] * 5 + [100, 110, 110, 111, 121]
+    ours = tvdf.VideoHash.many_from_packed_u32(packed, paths, durs)
+    got = tvdf.search(ours, 0.35, backend=backend, device="cpu")
+    assert same_groups(got, jvdf.search(jax_hashes(ours), 0.35, backend="naive"))
+    assert [g.duplicates for g in got] == [
+        ("/o/e", "/o/d"), ("/o/c", "/o/b"), ("/o/a", "/c/e"), ("/c/d", "/c/c"),
+        ("/c/b", "/c/a"),
+    ]
+
+
+def test_duration_slice_edges_match_the_jax_package():
+    """The [0.95 d, 1.05 d] windows at their integer edges, on ties, below
+    and above every duration, and on an empty Search."""
+    import vid_dup_finder_lib_tpu as jvdf
+    from tests.test_torch_search import jax_hashes
+
+    durs = [0, 1, 19, 20, 20, 21, 95, 100, 100, 100, 105, 106, 1000, 1049, 1050, 1051]
+    packed, _, _ = _batch(len(durs), 5)
+    ours = tvdf.VideoHash.many_from_packed_u32(
+        packed, [f"/v/{i:02d}" for i in range(len(durs))], durs
+    )
+    s, j = tvdf.Search(ours, device="cpu"), jvdf.Search(jax_hashes(ours))
+    probes = sorted(set(durs) | {d + k for d in durs for k in (-1, 1)} | {-5, 2000, 10**6})
+    got = [s._duration_slice(d) for d in probes]
+    assert got == [j._duration_slice(d) for d in probes]
+    assert s._duration_slice(100) == (durs.index(95), durs.index(106))
+    assert s._duration_slice(20) == (durs.index(19), durs.index(21) + 1)
+    assert s._duration_slice(10**6) == (len(durs), len(durs))
+    assert tvdf.Search([], device="cpu")._duration_slice(100) == (0, 0)
+    assert jvdf.Search([])._duration_slice(100) == (0, 0)

@@ -23,9 +23,9 @@ import torch
 
 import vid_dup_finder_lib_tpu_torch as tvdf
 from tests.fixtures import make_fixture_videos
-from vid_dup_finder_lib_tpu.crop import Crop
-from vid_dup_finder_lib_tpu.definitions import Cropdetect
-from vid_dup_finder_lib_tpu.models.builder import CreationOptions
+from vid_dup_finder_lib_tpu import crop as jax_crop
+from vid_dup_finder_lib_tpu import definitions as jax_definitions
+from vid_dup_finder_lib_tpu.models import builder as jax_builder
 from vid_dup_finder_lib_tpu.models.pipeline import hash_raw_frames_device as jax_hash_raw
 from vid_dup_finder_lib_tpu.models.pipeline import hash_videos as jax_hash_videos
 from vid_dup_finder_lib_tpu.ops.golden import crop_resize_golden, hash_bits_golden
@@ -34,17 +34,31 @@ from vid_dup_finder_lib_tpu.ops.letterbox_device import (
     cropdetect_letterbox_device as jax_letterbox,
 )
 from vid_dup_finder_lib_tpu.ops.resize_device import resize_frames_device as jax_resize
+from vid_dup_finder_lib_tpu_torch.crop import Crop
+from vid_dup_finder_lib_tpu_torch.definitions import Cropdetect
 from vid_dup_finder_lib_tpu_torch.models import pipeline
+from vid_dup_finder_lib_tpu_torch.models.builder import CreationOptions
 from vid_dup_finder_lib_tpu_torch.ops import hash_kernel as hk
 from vid_dup_finder_lib_tpu_torch.ops import resize_device as rd
+from vid_dup_finder_lib_tpu_torch.ops.letterbox import cropdetect_letterbox as port_letterbox_host
 from vid_dup_finder_lib_tpu_torch.ops.letterbox_device import cropdetect_letterbox_device
 
 DATA_DIR = os.path.join(os.path.dirname(__file__), "data")
 
 
+def _jax_crop(c):
+    """The JAX package's Crop for a crop of either package (or None)."""
+    return None if c is None else jax_crop.Crop(c.orig_res, c.left, c.right, c.top, c.bottom)
+
+
+def _edges(crops):
+    return [(c.orig_res, c.left, c.right, c.top, c.bottom) for c in crops]
+
+
 def _golden_cubes(frames, crops):
+    """The JAX package's golden crop-and-resize of each video."""
     return np.stack([
-        np.stack([crop_resize_golden(f, c) for f in video])
+        np.stack([crop_resize_golden(f, _jax_crop(c)) for f in video])
         for video, c in zip(frames, crops)
     ])
 
@@ -66,7 +80,7 @@ def test_resize_bit_exact(case):
     got = rd.resize_frames_device(torch.from_numpy(frames), crop)
     assert got.dtype == torch.uint8 and got.shape == (3, 16, 16, 16)
     np.testing.assert_array_equal(got.numpy(), _golden_cubes(frames, [crop] * 3))
-    np.testing.assert_array_equal(got.numpy(), jax_resize(frames, crop))
+    np.testing.assert_array_equal(got.numpy(), jax_resize(frames, _jax_crop(crop)))
 
 
 def test_resize_sub_batches_and_caller_precision(monkeypatch):
@@ -147,9 +161,10 @@ def _letterbox_frames():
 def test_letterbox_matches_host_and_jax():
     frames = _letterbox_frames()
     got = cropdetect_letterbox_device(torch.from_numpy(frames))
-    want = [cropdetect_letterbox(list(v)) for v in frames]
-    assert got == want
-    assert got == jax_letterbox(frames)
+    assert all(type(c) is Crop for c in got)
+    assert got == [port_letterbox_host(list(v)) for v in frames]
+    assert _edges(got) == _edges(cropdetect_letterbox(list(v)) for v in frames)
+    assert _edges(got) == _edges(jax_letterbox(frames))
     tops = [c.top for c in got]
     assert tops[5] == 5, "the histogram tie must resolve to the last maximum"
     assert tops[6] == 0 and tops[7] == 5, "108/120 is not above 0.9; 109/120 is"
@@ -211,9 +226,12 @@ def videos():
 @pytest.mark.parametrize("cropdetect", [Cropdetect.LETTERBOX, Cropdetect.MOTION, Cropdetect.NONE])
 def test_device_preproc_pipeline_parity(videos, cropdetect):
     opts = CreationOptions(cropdetect=cropdetect)
+    jax_opts = jax_builder.CreationOptions(
+        cropdetect=jax_definitions.Cropdetect(cropdetect.value)
+    )
     dev = pipeline.hash_videos(videos, opts, device="cpu", device_preproc=True)
     host = pipeline.hash_videos(videos, opts, device="cpu", device_preproc=False)
-    jax_dev = jax_hash_videos(videos, options=opts, device_preproc=True)
+    jax_dev = jax_hash_videos(videos, options=jax_opts, device_preproc=True)
     assert set(dev) == set(host) == set(jax_dev) == set(videos)
     for v in videos:
         assert isinstance(dev[v], tvdf.VideoHash), dev[v]

@@ -21,7 +21,7 @@ import torch
 import vid_dup_finder_lib_tpu as jvdf
 import vid_dup_finder_lib_tpu_torch as tvdf
 from tests.test_torch_hamming import LIBRARIES, _flip, _library
-from tests.test_torch_search import _planted_library
+from tests.test_torch_search import _planted_library, jax_hashes, same_groups
 from vid_dup_finder_lib_tpu.ops.hamming_pallas import refs_adjacency_pallas
 from vid_dup_finder_lib_tpu_torch.ops import hamming_cuda as hc
 from vid_dup_finder_lib_tpu_torch.ops.hamming import refs_adjacency
@@ -204,7 +204,9 @@ def test_search_with_references_matches_jax(library, tolerance):
     hashes, refs = library
     assert len(refs) >= 64
     ours = tvdf.search_with_references(refs, hashes, tolerance, device=CPU)
-    assert ours == jvdf.search_with_references(refs, hashes, tolerance)
+    assert same_groups(
+        ours, jvdf.search_with_references(jax_hashes(refs), jax_hashes(hashes), tolerance)
+    )
     if tolerance == 0.35:
         assert sorted(g.reference for g in ours) == sorted(
             f"/ref/p{k}" for k in range(24)
@@ -222,14 +224,14 @@ def test_batched_equals_per_ref_loop(library):
 def test_batched_after_a_consuming_call_filters_matched(library):
     hashes, refs = library
     ours = tvdf.Search(hashes, device=CPU)
-    ref_s = jvdf.Search(hashes)
+    ref_s = jvdf.Search(jax_hashes(hashes))
     first = refs[:10]
     assert ours.search_with_references(first, 0.35, consume=True) == (
-        ref_s.search_with_references(first, 0.35, consume=True)
+        ref_s.search_with_references(jax_hashes(first), 0.35, consume=True)
     )
     assert ours.matched.any()
     got = ours.search_with_references_batched(refs, 0.35)
-    assert got == ref_s.search_with_references_batched(refs, 0.35)
+    assert got == ref_s.search_with_references_batched(jax_hashes(refs), 0.35)
     assert got == [ours.search_one(r, 0.35, consume=False) for r in refs]
     consumed = {ours.entries[j].src_path for j in np.nonzero(ours.matched)[0]}
     assert not consumed & {p for m in got for p in m}
@@ -294,7 +296,7 @@ def test_band_and_refs_run_with_jax_unimportable():
         + _SETUP
         + """
     groups = vdf.search(hashes, 0.35, backend="band", device="cpu")
-    assert len(groups) == 300 and groups == vdf.search(hashes, 0.35, backend="host")
+    assert len(groups) == 300 and groups == vdf.search(hashes, 0.35, backend="host", device="cpu")
     found = vdf.search_with_references(refs, hashes, 0.35, device="cpu")
     assert len(found) == len(refs)
     assert not any(v is not None for k, v in sys.modules.items()

@@ -3,9 +3,13 @@ the JAX package's ``search`` on its host and Pallas backends.
 
 Groups are held exactly: the same MatchGroups in the same order.  The port
 computes the adjacency with the plain versions of its kernels here (CPU
-tensors); the greedy replay is the JAX package's own code.
+tensors); its greedy replay is its own copy of the JAX package's.  The two
+packages share no class: hashes cross between them as packed words, paths
+and durations (:func:`jax_hashes`), and groups are compared as
+(reference, duplicates) pairs (:func:`same_groups`).
 """
 
+import functools
 import json
 import os
 
@@ -20,6 +24,31 @@ from vid_dup_finder_lib_tpu_torch.ops.hamming_cuda import IncrementalDeviceLibra
 from vid_dup_finder_lib_tpu_torch.search import Search
 
 ORACLE = os.path.join(os.path.dirname(__file__), "oracles", "reference_vids_hashes.json")
+
+
+def _carried(package, hashes):
+    """``package``'s own hashes for the other package's ``hashes``, carried
+    across as packed words, paths and durations."""
+    hashes = list(hashes)
+    return package.VideoHash.many_from_packed_u32(
+        np.stack([h.packed_u32() for h in hashes]),
+        [h.src_path for h in hashes],
+        [h.duration for h in hashes],
+    )
+
+
+jax_hashes = functools.partial(_carried, jvdf)
+port_hashes = functools.partial(_carried, tvdf)
+
+
+def same_groups(ours, theirs):
+    """The port's MatchGroups equal the JAX package's, in the same order:
+    each package's own class, the same (reference, duplicates)."""
+    assert all(type(g) is tvdf.MatchGroup for g in ours)
+    assert all(type(g) is jvdf.MatchGroup for g in theirs)
+    return [(g.reference, g.duplicates) for g in ours] == [
+        (g.reference, g.duplicates) for g in theirs
+    ]
 
 
 def _planted_library(n, n_clusters, seed):
@@ -48,8 +77,9 @@ def library():
 def test_search_matches_jax_host_and_pallas(library, tolerance):
     hashes, planted, _ = library
     ours = tvdf.search(hashes, tolerance, device="cpu")  # auto: >= 4096
-    assert ours == jvdf.search(hashes, tolerance, backend="host")
-    assert ours == jvdf.search(hashes, tolerance, backend="pallas")
+    theirs = jax_hashes(hashes)
+    assert same_groups(ours, jvdf.search(theirs, tolerance, backend="host"))
+    assert same_groups(ours, jvdf.search(theirs, tolerance, backend="pallas"))
     if tolerance == 0.35:
         assert {frozenset(g.contained_paths()) for g in ours} == planted
 
@@ -58,8 +88,9 @@ def test_search_matches_jax_host_and_pallas(library, tolerance):
 def test_backends_agree(library, backend):
     hashes, _, _ = library
     sub = hashes[:900]  # the naive loop is slow in Python
-    assert tvdf.search(sub, 0.35, backend=backend, device="cpu") == jvdf.search(
-        sub, 0.35, backend="host"
+    assert same_groups(
+        tvdf.search(sub, 0.35, backend=backend, device="cpu"),
+        jvdf.search(jax_hashes(sub), 0.35, backend="host"),
     )
 
 
@@ -72,8 +103,9 @@ def _oracle():
 def test_frozen_real_content_two_groups_of_three(backend):
     hashes = _oracle()
     ours = tvdf.search(hashes, backend=backend, device=torch.device("cpu"))
-    assert ours == jvdf.search(hashes, backend="host")
-    assert ours == jvdf.search(hashes, backend="pallas")
+    theirs = jax_hashes(hashes)
+    assert same_groups(ours, jvdf.search(theirs, backend="host"))
+    assert same_groups(ours, jvdf.search(theirs, backend="pallas"))
     names = sorted(sorted(os.path.basename(p)[:3] for p in g.contained_paths())
                    for g in ours)
     assert names == [["cat"] * 3, ["dog"] * 3]
@@ -82,8 +114,9 @@ def test_frozen_real_content_two_groups_of_three(backend):
 def test_search_with_references_matches_jax(library):
     hashes, _, starts = library
     refs = [hashes[s].with_src_path(f"/ref/{k}") for k, s in enumerate(starts[:5])]
-    ours = tvdf.search_with_references(refs, hashes, 0.35)
-    assert ours == jvdf.search_with_references(refs, hashes, 0.35)
+    ours = tvdf.search_with_references(refs, hashes, 0.35, device="cpu")
+    theirs = jvdf.search_with_references(jax_hashes(refs), jax_hashes(hashes), 0.35)
+    assert same_groups(ours, theirs)
     assert len(ours) == 5 and all(len(g.duplicates) == 3 for g in ours)
 
 
@@ -120,14 +153,28 @@ def test_device_library_paths_are_not_ported():
     np.testing.assert_array_equal(
         Search._library_rows(lib, [2, 0]), np.stack([hashes[2].packed_u32(), hashes[0].packed_u32()])
     )
-    assert tvdf.search(hashes, device="cpu", device_library=lib, library_paths=paths) == (
-        jvdf.search(hashes, backend="host")
+    assert same_groups(
+        tvdf.search(hashes, device="cpu", device_library=lib, library_paths=paths),
+        jvdf.search(jax_hashes(hashes), backend="host"),
     )
 
 
 def test_public_surface_matches_jax_package():
+    """The same public names, each the port's own class, behaving alike:
+    the same packed words, durations and paths, and equal groups."""
     assert tvdf.__all__ == jvdf.__all__
     for name in tvdf.__all__:
         assert hasattr(tvdf, name), name
-    assert tvdf.VideoHash is jvdf.VideoHash  # re-exported, not copied
-    assert tvdf.MatchGroup is jvdf.MatchGroup
+    for name in ("VideoHash", "VideoHashBatch", "MatchGroup", "Search", "Crop"):
+        assert getattr(tvdf, name) is not getattr(jvdf, name), name
+    ours = _oracle()
+    theirs = jax_hashes(ours)
+    assert [type(h) for h in theirs] == [jvdf.VideoHash] * len(ours)
+    for a, b in zip(ours, theirs):
+        np.testing.assert_array_equal(a.packed_u32(), b.packed_u32())
+        assert (a.src_path, a.duration) == (b.src_path, b.duration)
+        assert a.to_json() == b.to_json()
+    assert same_groups(tvdf.search(ours, device="cpu"), jvdf.search(theirs))
+    g = tvdf.MatchGroup.new_with_reference("r", ["a", "b"])
+    assert g.to_json() == jvdf.MatchGroup.new_with_reference("r", ["a", "b"]).to_json()
+    assert g.dup_combinations() == [tvdf.MatchGroup("r", ("a",)), tvdf.MatchGroup("r", ("b",))]

@@ -3,13 +3,15 @@
 The port of ``vid_dup_finder_lib_tpu`` (JAX/Pallas on a TPU) to PyTorch
 with hand-written CUDA kernels for an NVIDIA H100.  The public surface is
 the JAX package's: perceptual video hashing (16-frame grayscale 3D-DCT
-sign hash) and tolerance-based duplicate search.  Host-only modules
-(definitions, errors, crop, match groups, the hash value type, the
-single-video builder, ingest) are the JAX package's own, imported rather
-than copied; none of them imports jax.  This package never imports jax.
+sign hash) and tolerance-based duplicate search.  The package stands
+alone: its host modules (definitions, errors, crop, match groups, the hash
+value type, the search's sorting and greedy replay, the single-video
+builder, ingest, the cache and the CLI) are copies of the JAX package's,
+under the same module names.  It imports neither jax nor the JAX package.
 
-Device entry points take an explicit ``device`` (``None`` = PyTorch's
-default device), or a tensor or library that lies on one:
+Device entry points take a ``device`` (``None`` = the card, CUDA's
+current device; the CPU only when named, ``device="cpu"``), or a tensor
+or library that lies on one:
 
 * search: ``search`` and ``search_with_references`` (both also over a
   resident library, ``device_library=`` / ``library_paths=``),
@@ -66,6 +68,8 @@ __all__ = [
     "search",
     "search_with_references",
 ]
+
+__version__ = "0.4.0"  # kept in sync with pyproject.toml
 
 
 def __getattr__(name):

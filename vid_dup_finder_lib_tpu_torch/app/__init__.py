@@ -1,12 +1,15 @@
-"""Application layer on the port: the ``vid-dup-finder`` CLI hashing and
-searching on an explicit device (``python -m vid_dup_finder_lib_tpu_torch.app``).
+"""Application layer on the port: CLI, config, outputs, match database
+(counterpart of ``vid_dup_finder_lib_tpu.app``; ``python -m
+vid_dup_finder_lib_tpu_torch.app`` hashes and searches on an explicit
+device).
 
-Configuration, outputs and the match database are the JAX package's
-(``vid_dup_finder_lib_tpu.app``); :func:`.app_fns.run_app` is the port's.
+Mirrors the reference's ``vid_dup_finder_app`` (SURVEY.md section 2.5): the
+``vid-dup-finder`` command-line tool over the library — hash cache
+management, disk search, text/JSON/thumbnail outputs, and the
+human-curated match database.
 """
 
-from vid_dup_finder_lib_tpu.app.app_cfg import AppCfg, Sorting
-
+from .app_cfg import AppCfg, Sorting
 from .app_fns import run_app
 
 __all__ = ["AppCfg", "Sorting", "run_app"]

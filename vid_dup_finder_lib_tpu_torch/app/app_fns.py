@@ -1,51 +1,45 @@
 """The application pipeline on the port (counterpart of
 ``vid_dup_finder_lib_tpu/app/app_fns.py``).
 
-Only the functions that name the cache, the hash or the search are the
-port's own: :func:`run_app`, :func:`run_app_inner`,
-:func:`update_hash_cache` and :func:`search_disk`, which open the port's
-hash cache and search on an explicit ``device``.  Argument parsing, the
-match database, the filters and every output are the JAX package's, by
-import, so the flag surface and the output formats are the same.
+Port of ``run_app_inner`` (``vid_dup_finder_app/src/app/app_fns.rs:37-255``):
+raise the fd limit -> validate directories -> open the hash cache (autosave
+threshold 2000) -> update the cache from the filesystem (batched device
+hashing) -> optional match-db load/update/fix/save -> search or
+matchdb-display -> text/JSON/thumbnail outputs.  :func:`run_app` takes
+the ``device`` that the cache hashes and the search sweeps on; the flag
+surface and the output formats are the JAX CLI's.
 """
 
 from __future__ import annotations
 
+import json
 import logging
 import os
 import sys
 
 import torch
 
-from vid_dup_finder_lib_tpu.app.app_cfg import AppCfg
-from vid_dup_finder_lib_tpu.app.app_fns import (
-    CACHE_SAVE_THRESHOLD,
-    AppError,
-    _all_files_pattern,
-    _cands_pattern,
-    _matchdb_filter,
-    _print_groups,
-    _raise_fd_limit,
-    _refs_pattern,
-    _show_missed_matches,
-    _validate_dirs,
-    do_app_outputs,
-)
-from vid_dup_finder_lib_tpu.app.arg_parse import parse_args
-from vid_dup_finder_lib_tpu.app.match_db import MatchDb
-from vid_dup_finder_lib_tpu.app.search_output import SearchOutput
-from vid_dup_finder_lib_tpu.utils.logging import configure_logs
-from vid_dup_finder_lib_tpu.utils.timers import phase_timer
-
+from ..cache.filename_pattern import FilenamePattern
 from ..cache.hash_cache import VideoHashFilesystemCache
-from ..ingest import force_backend
+from ..ingest.backend import force_backend
+from ..match_group import MatchGroup, TooFewEntries
 from ..models.builder import CreationOptions
 from ..search import search, search_with_references
 from ..utils.device import resolve_device
+from ..utils.logging import configure_logs
+from ..utils.timers import phase_timer
+from .app_cfg import AppCfg, OutputFormat
+from .arg_parse import parse_args
+from .match_db import MatchDb
+from .search_output import SearchOutput
 
 log = logging.getLogger("vid_dup_finder")
 
-__all__ = ["AppError", "run_app", "run_app_inner", "search_disk", "update_hash_cache"]
+CACHE_SAVE_THRESHOLD = 2000  # app_fns.rs:139-146
+
+
+class AppError(Exception):
+    pass
 
 
 def run_app(
@@ -82,6 +76,60 @@ def run_app(
     finally:
         if cfg.hash_cfg.decode_backend != "auto":
             force_backend(None)  # embedders may call run_app repeatedly
+
+
+def _raise_fd_limit() -> None:
+    """RLIMIT_NOFILE -> 16384, best effort (app_fns.rs:56-80)."""
+    try:
+        import resource
+
+        soft, hard = resource.getrlimit(resource.RLIMIT_NOFILE)
+        want = min(16384, hard if hard > 0 else 16384)
+        if soft < want:
+            resource.setrlimit(resource.RLIMIT_NOFILE, (want, hard))
+    except Exception:
+        pass
+
+
+def _validate_dirs(cfg: AppCfg) -> None:
+    """Candidate/ref/excl paths must exist and not collide
+    (app_fns.rs:86-133)."""
+    for kind, paths in (
+        ("--files", cfg.dir_cfg.cand_dirs),
+        ("--with-refs", cfg.dir_cfg.ref_dirs),
+    ):
+        for p in paths:
+            if not os.path.exists(p):
+                raise AppError(f"{kind} path does not exist: {p}")
+    overlap = set(cfg.dir_cfg.cand_dirs) & set(cfg.dir_cfg.ref_dirs)
+    if overlap:
+        raise AppError(
+            f"paths given in both --files and --with-refs: {sorted(overlap)}"
+        )
+
+
+def _all_files_pattern(cfg: AppCfg) -> FilenamePattern:
+    return FilenamePattern.new(
+        includes=list(cfg.dir_cfg.cand_dirs) + list(cfg.dir_cfg.ref_dirs),
+        excludes=list(cfg.dir_cfg.excl_dirs),
+        excl_exts=list(cfg.dir_cfg.excl_exts),
+    )
+
+
+def _cands_pattern(cfg: AppCfg) -> FilenamePattern:
+    return FilenamePattern.new(
+        includes=list(cfg.dir_cfg.cand_dirs),
+        excludes=list(cfg.dir_cfg.excl_dirs) + list(cfg.dir_cfg.ref_dirs),
+        excl_exts=list(cfg.dir_cfg.excl_exts),
+    )
+
+
+def _refs_pattern(cfg: AppCfg) -> FilenamePattern:
+    return FilenamePattern.new(
+        includes=list(cfg.dir_cfg.ref_dirs),
+        excludes=list(cfg.dir_cfg.excl_dirs),
+        excl_exts=list(cfg.dir_cfg.excl_exts),
+    )
 
 
 def run_app_inner(cfg: AppCfg, device: torch.device) -> None:
@@ -206,3 +254,161 @@ def search_disk(
     if cfg.show_missed_matches and match_db is not None:
         out = _show_missed_matches(match_db, out)
     return out
+def _matchdb_filter(
+    cfg: AppCfg, match_db: MatchDb, matchset: list[MatchGroup]
+) -> SearchOutput:
+    """remove-known-matches regrouping + falsepos filtering
+    (app_fns.rs:541-635)."""
+    num_pre = len(matchset)
+    num_falsepos_removed = 0
+
+    if cfg.matchdb_cfg.remove_known_matches:
+        regrouped: list[MatchGroup] = []
+        for group in matchset:
+            buckets: list[list[str]] = []
+            for src_path in group.contained_paths():
+                # first bucket NOT fully confirmed with this path
+                placed = False
+                for bucket in buckets:
+                    if not match_db.all_confirmed(bucket, src_path):
+                        bucket.append(src_path)
+                        placed = True
+                        break
+                if not placed:
+                    buckets.append([src_path])
+            for b in buckets:
+                try:
+                    regrouped.append(MatchGroup.new(b))
+                except TooFewEntries:
+                    pass
+        matchset = regrouped
+
+    if cfg.matchdb_cfg.remove_falsepos:
+        filtered: list[MatchGroup] = []
+        for group in matchset:
+            kept: list[str] = []
+            for src_path in group.contained_paths():
+                if not kept:
+                    kept.append(src_path)
+                elif not any(
+                    match_db.is_falsepos(g, src_path) for g in kept
+                ):
+                    kept.append(src_path)
+                else:
+                    num_falsepos_removed += 1
+            try:
+                filtered.append(MatchGroup.new(kept))
+            except TooFewEntries:
+                pass
+        matchset = filtered
+
+    out = SearchOutput(matchset)
+    num_db_matches = sum(
+        len(g.dup_combinations()) for g in match_db.confirmed_groups()
+    )
+    print(
+        f"There were {num_pre} groups pre filtering and {len(out)} groups "
+        "after."
+    )
+    print(
+        f"Search failed to find {num_db_matches - num_pre} groups in the "
+        "match_db"
+    )
+    if cfg.matchdb_cfg.remove_falsepos:
+        print(f"Removed {num_falsepos_removed} false positive matches.")
+    return out
+
+
+def _show_missed_matches(
+    match_db: MatchDb, curr_output: SearchOutput
+) -> SearchOutput:
+    """Confirmed pairs the search failed to find (app_fns.rs:655-698)."""
+    found_pairs = set()
+    for g in curr_output.dup_groups():
+        for combo in g.dup_combinations():
+            paths = sorted(combo.contained_paths())
+            found_pairs.add(tuple(paths))
+    missed = []
+    for g in match_db.confirmed_groups():
+        for combo in g.dup_combinations():
+            paths = tuple(sorted(combo.contained_paths()))
+            if paths not in found_pairs:
+                try:
+                    missed.append(MatchGroup.new(list(paths)))
+                except TooFewEntries:
+                    pass
+    return SearchOutput(missed)
+
+
+def _print_groups(groups: list[MatchGroup], fmt: OutputFormat) -> None:
+    if fmt is OutputFormat.JSON:
+        out = [
+            {
+                "reference": g.reference,
+                "duplicates": list(g.duplicates),
+            }
+            for g in groups
+        ]
+        json.dump(out, sys.stdout, indent=2)
+        print()
+    else:
+        for g in groups:
+            if g.reference is not None:
+                print(g.reference)
+            for d in g.duplicates:
+                print(d)
+            print()
+
+
+def do_app_outputs(
+    cfg: AppCfg, search_output: SearchOutput, cache: VideoHashFilesystemCache
+) -> None:
+    """(app_fns.rs:258-426)"""
+    text = cfg.output_cfg.text
+    if text.kind == "unique":
+        dup_paths = set(search_output.dup_paths())
+        cands_filter = _cands_pattern(cfg)
+        cands = {
+            p
+            for p in cache.all_cached_paths()
+            if cands_filter.includes_path(p)
+        }
+        unique_paths = sorted(cands - dup_paths)
+        if text.format is OutputFormat.JSON:
+            json.dump(unique_paths, sys.stdout, indent=2)
+            print()
+        else:
+            for p in unique_paths:
+                print(p)
+    elif text.kind == "dups":
+        search_output.sort(text.sorting, cache)
+        _print_groups(list(search_output.dup_groups()), text.format)
+
+    thumbs = cfg.output_cfg.thumbs
+    if thumbs.thumbs_dir:
+        search_output.sort(thumbs.sorting, cache)
+        search_output.save_debug_imgs(thumbs.thumbs_dir)
+
+    if cfg.output_cfg.gui.web_port is not None:
+        # the reference's optional Slint GUI, re-imagined as a local
+        # browser app over the same resolution engine
+        from .resolver_web import run_resolver_web
+
+        search_output.sort(cfg.output_cfg.gui.sorting, cache)
+        run_resolver_web(
+            list(search_output.dup_groups()),
+            cache=cache,
+            trash_dir=cfg.output_cfg.gui.trash_path,
+            port=cfg.output_cfg.gui.web_port,
+            max_thumbs=cfg.output_cfg.gui.max_thumbs,
+        )
+    elif cfg.output_cfg.gui.enabled:
+        # ... or as a TTY carousel (--gui-slint maps here)
+        from .resolver_tui import run_resolver
+
+        search_output.sort(cfg.output_cfg.gui.sorting, cache)
+        run_resolver(
+            list(search_output.dup_groups()),
+            cache=cache,
+            trash_dir=cfg.output_cfg.gui.trash_path,
+        )

@@ -1,44 +1,103 @@
-"""The video-hash filesystem cache, hashing on the port's device.
+"""The video-hash filesystem cache, hashing on the port's device
+(counterpart of ``vid_dup_finder_lib_tpu/cache/hash_cache.py``).
 
-``VideoHashFilesystemCache`` subclasses the JAX package's class and
-replaces only what hashes: :meth:`_load_one` (one video, through
-:func:`..ops.hash_kernel.hash_cubes`) and :meth:`update_using_fs` (stale
-videos in batches, through :func:`..models.pipeline.hash_videos`), both on
-an explicit ``device``.  The file format, the metadata sidecar, the mtime
-rules and the autosave checkpoint are the JAX package's, so a cache
-written by either package is read and updated by the other.
+Mirrors the reference's ``VideoHashFilesystemCache``
+(``…/video_hash_filesystem_cache.rs``):
+
+* values are ``Result<VideoHash, Error>`` — errors are cached so a broken
+  video is not re-decoded on every run (generic_cache_if.rs:22-44), with
+  explicit re-try via ``reload_errors``;
+* a metadata sidecar records the hash-affecting settings (decode backend,
+  cropdetect, skip_forward, hash duration, cache version) and the cache
+  refuses to open when they differ (:76-139, cache_metadata.rs:127-162);
+* autosave every ``save_threshold`` mutations makes the cache the
+  checkpoint: an interrupted bulk run resumes where it stopped.
+
+One video hashes through :func:`..ops.hash_kernel.hash_cubes`, stale
+videos in batches through :func:`..models.pipeline.hash_videos`, both on
+the cache's explicit ``device``.  The file format and the sidecar are the
+JAX package's byte for byte, so a cache written by either package is read
+and updated by the other.
 """
 
 from __future__ import annotations
 
+import json
 import os
+import platform
+from dataclasses import dataclass
 from typing import Callable, Iterable
 
 import numpy as np
 import torch
 
-from vid_dup_finder_lib_tpu.cache.hash_cache import (
-    HASH_BATCH,
-    VdfCacheError,
-)
-from vid_dup_finder_lib_tpu.cache.hash_cache import (
-    VideoHashFilesystemCache as _RefCache,
-)
-from vid_dup_finder_lib_tpu.cache.processing_cache import UpdateAction, mtime_secs
-
-from ..errors import VdfError, VidProc
-from ..models.builder import CreationOptions, prepare_frames
-from ..models.pipeline import hash_videos
+from ..errors import VdfError
+from ..models.builder import CreationOptions
+from ..models.pipeline import hash_videos, safe_prepare
 from ..ops.hash_kernel import hash_cubes
 from ..utils.device import resolve_device
 from ..video_hash import VideoHash
+from .processing_cache import ProcessingFsCache, UpdateAction, mtime_secs
 
-__all__ = ["HASH_BATCH", "VdfCacheError", "VideoHashFilesystemCache"]
+CACHE_VERSION = 1
+HASH_BATCH = 256
 
 
-class VideoHashFilesystemCache(_RefCache):
-    """The hash cache of ``vid_dup_finder_lib_tpu.cache``, hashing on
-    ``device`` (``None``: PyTorch's default device)."""
+class VdfCacheError(Exception):
+    pass
+
+
+def _encode_value(v) -> dict:
+    if isinstance(v, VideoHash):
+        return {"ok": v.to_json()}
+    return {"err": v.to_json()}
+
+
+def _decode_value(raw: dict):
+    if "ok" in raw:
+        return VideoHash.from_json(raw["ok"])
+    return VdfError.from_json(raw["err"])
+
+
+@dataclass(frozen=True)
+class CacheMetadata:
+    """Sidecar contents (cache_metadata.rs:80-126)."""
+
+    cache_version: int
+    os_name: str
+    decode_backend: str
+    cropdetect: str
+    skip_forward: float
+    hash_duration: float
+
+    @staticmethod
+    def current(opts: CreationOptions) -> "CacheMetadata":
+        from ..ingest.backend import active_backend_name
+
+        return CacheMetadata(
+            cache_version=CACHE_VERSION,
+            os_name=platform.system(),
+            # the backend decodes will ACTUALLY use (force_backend
+            # honored) — recording available_backends()[0] let a pinned
+            # run mix decode backends into a cache that validated clean
+            decode_backend=active_backend_name(),
+            cropdetect=opts.cropdetect.value,
+            skip_forward=opts.skip_forward_amount,
+            hash_duration=opts.duration,
+        )
+
+    def validate_against(self, other: "CacheMetadata") -> None:
+        if self != other:
+            raise VdfCacheError(
+                "hash cache was created with different settings "
+                f"(cached={other}, current={self}); delete the cache or "
+                "use matching settings"
+            )
+
+
+class VideoHashFilesystemCache:
+    """The hash cache, hashing on ``device`` (``None``: PyTorch's default
+    device)."""
 
     def __init__(
         self,
@@ -48,19 +107,113 @@ class VideoHashFilesystemCache(_RefCache):
         device: torch.device | str | None = None,
     ) -> None:
         self.device = resolve_device(device)
-        super().__init__(cache_path, save_threshold, creation_options)
+        self.cache_path = os.fspath(cache_path)
+        self.options = creation_options
+        self._meta_path = (
+            os.path.splitext(self.cache_path)[0] + ".metadata.json"
+        )
+        self._check_or_write_metadata()
+        self._cache = ProcessingFsCache(
+            self.cache_path,
+            load_fn=self._load_one,
+            save_threshold=save_threshold,
+            encode=_encode_value,
+            decode=_decode_value,
+        )
+
+    # -- metadata sidecar --------------------------------------------------
+
+    def _check_or_write_metadata(self) -> None:
+        current = CacheMetadata.current(self.options)
+        if os.path.exists(self._meta_path):
+            with open(self._meta_path, "r", encoding="utf-8") as f:
+                raw = json.load(f)
+            try:
+                stored = CacheMetadata(**raw)
+            except TypeError:
+                # schema drift (the very case cache_version exists for)
+                # must surface as the clean mismatch error, not TypeError
+                raise VdfCacheError(
+                    "hash cache metadata has an incompatible schema "
+                    f"({raw}); delete the cache or use a matching version"
+                ) from None
+            current.validate_against(stored)
+        else:
+            os.makedirs(
+                os.path.dirname(os.path.abspath(self._meta_path)),
+                exist_ok=True,
+            )
+            with open(self._meta_path, "w", encoding="utf-8") as f:
+                json.dump(current.__dict__, f, indent=2)
+
+    # -- single-video load (the CacheInterface::load equivalent) ------------
 
     def _load_one(self, path: str):
         """Hash one video; errors become cached values, not exceptions."""
-        try:
-            cube, duration = prepare_frames(path, self.options)
-        except VdfError as e:
-            return e
-        except Exception as e:  # decode libraries can throw anything
-            return VidProc(f"{e!r}")
+        _, cube, duration, err = safe_prepare(path, self.options)
+        if err is not None:
+            return err
         cubes = torch.from_numpy(np.ascontiguousarray(cube[None])).to(self.device)
         packed = hash_cubes(cubes).cpu().numpy().view(np.uint32)[0]
         return VideoHash.from_packed_u32(packed, path, duration)
+
+    # -- fetch API (video_hash_filesystem_cache.rs:146-269) -----------------
+
+    def fetch(self, path: str) -> VideoHash:
+        """Cached value; raises the cached error for error entries."""
+        value = self._cache.fetch(os.fspath(path))
+        if isinstance(value, VdfError):
+            raise value
+        return value
+
+    def fetch_update(self, path: str) -> VideoHash:
+        value = self._cache.fetch_update(os.fspath(path))
+        if isinstance(value, VdfError):
+            raise value
+        return value
+
+    def force_update(self, path: str) -> None:
+        self._cache.force_update(os.fspath(path))
+
+    def contains(self, path: str) -> bool:
+        return self._cache.contains_key(os.fspath(path))
+
+    def all_cached_paths(self) -> list[str]:
+        return [
+            k
+            for k in self._cache.keys()
+            if not isinstance(self._cache.fetch(k), VdfError)
+        ]
+
+    def error_paths(self) -> list[str]:
+        return [
+            k
+            for k in self._cache.keys()
+            if isinstance(self._cache.fetch(k), VdfError)
+        ]
+
+    def fetch_hashes(self, paths: Iterable[str]) -> list[VideoHash]:
+        out = []
+        for p in paths:
+            try:
+                out.append(self.fetch(p))
+            except (KeyError, VdfError):
+                pass
+        return out
+
+    def remove(self, path: str) -> None:
+        self._cache.remove(os.fspath(path))
+
+    def save(self) -> None:
+        self._cache.save()
+
+    def clear(self) -> None:
+        self._cache.clear()
+
+    def __len__(self) -> int:
+        return len(self._cache)
+
+    # -- batched update ----------------------------------------------------
 
     def update_using_fs(
         self,
@@ -76,7 +229,7 @@ class VideoHashFilesystemCache(_RefCache):
         host or device preprocessing as ``device_preproc`` says (default:
         ``VDF_DEVICE_PREPROC``).  Each chunk is inserted before the next
         is decoded, so the autosave checkpoint holds.  Returns the number
-        of (re)hashed videos."""
+        of (re)hashed videos (video_hash_filesystem_cache.rs:236-257)."""
         paths = [os.fspath(p) for p in paths]
         stale: list[str] = []
         for p in paths:
@@ -107,3 +260,11 @@ class VideoHashFilesystemCache(_RefCache):
             if progress:
                 progress(start + len(chunk), len(stale))
         return len(stale)
+
+    def prune_deleted(self) -> int:
+        """Drop entries whose source file no longer exists
+        (app_fns.rs:826-845)."""
+        gone = [p for p in self._cache.keys() if not os.path.exists(p)]
+        for p in gone:
+            self._cache.remove(p)
+        return len(gone)

@@ -3,7 +3,7 @@
 ``hash_raw_frames_device``).
 
 Host preprocessing (the default): a host thread pool decodes, crops and
-resizes videos into 16x16x16 cubes (the JAX package's ``safe_prepare``);
+resizes videos into 16x16x16 cubes (:func:`safe_prepare`);
 each batch of cubes goes to the device from pinned memory without blocking
 and through :func:`..ops.hash_kernel.hash_cubes`.  Kernel launches are
 asynchronous, so batch k hashes while batch k+1 decodes; the packed hashes
@@ -26,9 +26,6 @@ from typing import Callable, Iterable
 import numpy as np
 import torch
 
-from vid_dup_finder_lib_tpu.models.builder import prepare_raw_frames
-from vid_dup_finder_lib_tpu.models.pipeline import DEFAULT_BATCH, safe_prepare
-
 from ..crop import Crop
 from ..definitions import Cropdetect
 from ..errors import VdfError, VidProc
@@ -37,9 +34,25 @@ from ..ops.letterbox_device import cropdetect_letterbox_device
 from ..ops.resize_device import resize_frames_device
 from ..utils.device import resolve_device
 from ..video_hash import VideoHash
-from .builder import CreationOptions
+from .builder import CreationOptions, prepare_frames, prepare_raw_frames
 
+DEFAULT_BATCH = 256  # videos per host-preprocessed device batch
 DEFAULT_PREPROC_BATCH_BYTES = 512 * 2**20  # raw frames per device batch
+
+
+def safe_prepare(path: str, options: CreationOptions):
+    """Decode and preprocess one video, mapping failures to cacheable
+    error values (generic_cache_if.rs:22-44's contract): a VdfError passes
+    through, anything a decode library throws becomes VidProc.  Returns
+    (path, cube | None, duration, error | None); the pipeline and the
+    cache share it, so the error-wrapping rules cannot drift."""
+    try:
+        cube, dur = prepare_frames(path, options)
+        return (path, cube, dur, None)
+    except VdfError as e:
+        return (path, None, 0, e)
+    except Exception as e:  # decode libraries can throw anything
+        return (path, None, 0, VidProc(f"{e!r}"))
 
 
 def _to_device(host: np.ndarray, dev: torch.device) -> torch.Tensor:

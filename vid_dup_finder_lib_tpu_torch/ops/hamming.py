@@ -4,8 +4,8 @@
 
 Backends of :func:`banded_adjacency`:
 
-* ``"host"``: the JAX package's NumPy sweep (``banded_adjacency_host``,
-  which imports no jax).
+* ``"host"``: :func:`banded_adjacency_host`, a NumPy sweep (the JAX
+  package's ``banded_adjacency_host``, copied).
 * ``"auto"`` or ``"device"``: the two-phase sweep of :mod:`.hamming_cuda`
   (K2 + K3) on ``device`` -- its kernels on a CUDA device, their plain
   versions on the CPU.
@@ -21,8 +21,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from vid_dup_finder_lib_tpu.ops.hamming import banded_adjacency_host
-
+from ..definitions import HASH_BITS_PADDED
 from ..utils.device import resolve_device
 from .hamming_band import banded_adjacency_band
 from .hamming_cuda import (
@@ -33,6 +32,52 @@ from .hamming_cuda import (
 )
 
 BACKENDS = ("auto", "device", "host", "band")
+
+_BIT_SHIFTS = np.arange(32, dtype=np.uint32)
+
+
+def unpack_pm1_host(packed: np.ndarray, dtype=np.float32) -> np.ndarray:
+    """uint32[N, 32] -> {-1, +1}[N, 1024] over all 1024 storage bits, like
+    the reference's per-word popcount (video_hash.rs:311-317):
+    dot(a, b) = 1024 - 2 * hamming."""
+    n = packed.shape[0]
+    bits = (packed[:, :, None] >> _BIT_SHIFTS[None, None, :]) & np.uint32(1)
+    pm = (bits.astype(np.int8) * 2 - 1).reshape(n, HASH_BITS_PADDED)
+    return pm.astype(dtype)
+
+
+def banded_adjacency_host(
+    packed: np.ndarray,
+    bounds: np.ndarray,
+    tolerance_int: int,
+    row_block: int = 2048,
+) -> tuple[np.ndarray, np.ndarray]:
+    """All pairs (i, j), i < j < bounds[i], with hamming <= tolerance_int:
+    the banded block sweep in NumPy, an exact-integer f32 dot."""
+    n = packed.shape[0]
+    if n == 0:
+        return np.zeros(0, np.int64), np.zeros(0, np.int64)
+    pm = unpack_pm1_host(packed)
+    out_i: list[np.ndarray] = []
+    out_j: list[np.ndarray] = []
+    for r0 in range(0, n, row_block):
+        r1 = min(r0 + row_block, n)
+        c0 = r0 + 1
+        c1 = int(bounds[r0:r1].max())
+        if c1 <= c0:
+            continue
+        dot = pm[r0:r1] @ pm[c0:c1].T  # exact: integers < 2^24 in f32
+        dist = (HASH_BITS_PADDED - dot) * 0.5
+        rows = np.arange(r0, r1)[:, None]
+        cols = np.arange(c0, c1)[None, :]
+        adj = (dist <= tolerance_int) & (cols > rows) & (cols < bounds[r0:r1, None])
+        if adj.any():
+            ii, jj = np.nonzero(adj)
+            out_i.append(ii.astype(np.int64) + r0)
+            out_j.append(jj.astype(np.int64) + c0)
+    if not out_i:
+        return np.zeros(0, np.int64), np.zeros(0, np.int64)
+    return np.concatenate(out_i), np.concatenate(out_j)
 
 
 def banded_adjacency(

@@ -464,18 +464,16 @@ def band_counts(state: SweepState, tol: int) -> torch.Tensor:
     """Phase A: match count per (row tile, band slot), int32[R, slots],
     for a :class:`SearchState` or a :class:`RefsState`.
 
-    CUDA state -> ``band_counts_kernel`` (one launch over the whole band,
-    on the current stream); CPU state -> :func:`band_counts_plain`."""
+    CUDA state -> ``band_counts_kernel`` (one launch on the current
+    stream); CPU state -> :func:`band_counts_plain`."""
     if state.device.type == "cpu":
         return band_counts_plain(state, tol)
-    counts = torch.empty(
+    counts = torch.zeros(
         (state.n_row_tiles, state.slots), dtype=torch.int32,
         device=state.device,
     )
     if counts.numel() == 0:
         return counts
-    if counts.numel() >= 2**31:
-        raise ValueError(f"band grid of {counts.numel()} blocks exceeds 2^31")
     lib = cuda_build.load_library()
     err = lib.vdf_band_counts(
         cuda_build.ptr(state.rows, "rows"),
@@ -529,8 +527,9 @@ band_pack.launches = 0
 
 
 def _clamp_tol(tol: int) -> int:
-    # any tolerance >= 1024 matches every pair; keep it in the C int range
-    return min(int(tol), HASH_BITS_PADDED)
+    # any tolerance >= 1024 matches every pair and any negative one none;
+    # [-1, 1024] keeps it, and K2's threshold 1024 - 2 * tol, in the C int range
+    return max(-1, min(int(tol), HASH_BITS_PADDED))
 
 
 def _row_lo_ptr(state: SweepState) -> int | None:

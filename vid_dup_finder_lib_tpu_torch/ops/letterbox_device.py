@@ -15,16 +15,23 @@ that would materialise ``strips x length x 256`` booleans (gigabytes for
 a 1080p batch), so here one ``bincount`` over ``strip * 256 + value``
 counts every strip of a side at once.  ``TOL`` and the integer form of the
 90% test (``_PROP_NUM / _PROP_DEN``, exact at ratios such as 108/120) are
-the JAX module's own constants.
+the JAX module's constants, derived the same way.
 """
 
 from __future__ import annotations
 
+from fractions import Fraction
+
 import torch
 
-from vid_dup_finder_lib_tpu.ops.letterbox_device import _PROP_DEN, _PROP_NUM, TOL
-
 from ..crop import Crop
+from .letterbox import MIN_PROPORTION
+
+TOL = 16  # cropdetect_letterbox uses AnyColour(16)
+# exact integer form of `matching / strip_len > MIN_PROPORTION`: float32
+# division disagrees with the host's float64 at ratios such as 108/120
+_PROP_NUM = Fraction(MIN_PROPORTION).limit_denominator(1000).numerator
+_PROP_DEN = Fraction(MIN_PROPORTION).limit_denominator(1000).denominator
 
 
 def strip_histograms(strips: torch.Tensor) -> torch.Tensor:

@@ -6,8 +6,9 @@ passes per frame, horizontal then vertical: i16 coefficients at the
 Normalizer16 precision ``p``, a ``2^(p-1)`` rounding seed, an arithmetic
 shift by ``p`` and a u8 clamp after each pass.  For a batch of videos of
 one resolution and crop, each pass is one float32 matrix product with the
-bucket's integer weights (``_weights_for``, the JAX module's own, so the
-host and device weights cannot drift apart).
+bucket's integer weights (:func:`_weights_for`, built from the host golden
+path's own ``resize_weights`` and ``_fir_i16_weights``, so the host and
+device weights cannot drift apart).
 
 Exactness: the coefficients are integers with |k| <= 2^15 and the pixels
 u8, so every product and every partial sum (<= 255 * sum|k| < 2^24) is an
@@ -18,15 +19,35 @@ integer that float32 holds exactly; the products must run in true fp32
 
 from __future__ import annotations
 
-import torch
+import functools
 
-from vid_dup_finder_lib_tpu.ops.resize_device import _weights_for
+import numpy as np
+import torch
 
 from ..crop import Crop
 from ..definitions import DCT_SIZE
+from .golden import _fir_i16_weights, resize_weights
 from .hash_kernel import full_fp32_matmul
 
 SUB_BATCH_BYTES = 256 * 2**20  # float32 frames cast at once
+
+
+@functools.lru_cache(maxsize=256)
+def _weights_for(
+    height: int, width: int, crop_args: tuple[int, int, int, int] | None
+) -> tuple[np.ndarray, np.ndarray, int, int]:
+    """(K_v [16, H], K_h [16, W] integer-valued f32, p_v, p_h) for one
+    (resolution, crop) bucket: i16 fixed-point coefficients identical to
+    the host golden path's."""
+    if crop_args is None:
+        x, y, cw, ch = 0, 0, width, height
+    else:
+        x, y, cw, ch = crop_args
+    wv = resize_weights(height, DCT_SIZE, crop_start=float(y), crop_size=float(ch))
+    wh = resize_weights(width, DCT_SIZE, crop_start=float(x), crop_size=float(cw))
+    kv, pv = _fir_i16_weights(wv)
+    kh, ph = _fir_i16_weights(wh)
+    return kv.astype(np.float32), kh.astype(np.float32), pv, ph
 
 
 def _fixed_point_round(acc: torch.Tensor, p: int) -> torch.Tensor:

@@ -1,12 +1,26 @@
-"""Duplicate search on the port: ``search`` / ``search_with_references``.
+"""Duplicate search on the port: ``search`` / ``search_with_references``
+(counterpart of ``vid_dup_finder_lib_tpu/search.py``).
 
-``Search`` subclasses the JAX package's ``Search`` and overrides how the
-device does its part: the duration-banded adjacency of the self-search
-(``_ensure_adjacency``, through :func:`.ops.hamming.banded_adjacency`) and
-the batched references search (``search_with_references_batched``, through
-:func:`.ops.hamming.refs_adjacency`), both on the Search's device.
-Sorting, windows and the greedy replay of the reference's consume order
-are the JAX package's own code, so groups match it by construction.
+Semantics are an exact behavioural port of the reference's greedy search
+(``vid_dup_finder_lib/src/video_hashing/search_algorithm.rs`` and
+``video_dup_finder.rs``):
+
+* entries are sorted by ``(duration, src_path)`` (bytewise path order) for
+  determinism;
+* ``search_self`` sweeps a two-pointer duration window (rhs advances while
+  ``duration <= int(lhs_duration * 1.1)``), each target greedily consumes
+  unmatched candidates within ``int(tolerance * 1000)`` Hamming distance;
+* ``search_with_references`` uses a symmetric ``[int(0.95 d), int(1.05 d)]``
+  window and does not consume candidates.
+
+The device computes the *adjacency* (which pairs are within tolerance):
+the duration-banded adjacency of the self-search through
+:func:`.ops.hamming.banded_adjacency`, the batched references search
+through :func:`.ops.hamming.refs_adjacency`, both on the Search's device.
+The greedy pass is replayed on the host in the reference's sort order over
+that adjacency.  Because durations are sorted, the reference's
+matched-entry skipping in ``advance_rhs`` never changes the candidate set,
+so replaying over a precomputed duration-windowed adjacency is exact.
 
 Backends of ``search``:
 
@@ -14,7 +28,8 @@ Backends of ``search``:
   the two-phase adjacency on ``device``;
 * ``"device"``: the two-phase adjacency (K2 + K3) on ``device`` at any size;
 * ``"band"``: the whole-band adjacency (K4) on ``device`` at any size;
-* ``"host"``: the adjacency from the JAX package's NumPy sweep;
+* ``"host"``: the adjacency from the NumPy sweep
+  (:func:`.ops.hamming.banded_adjacency_host`);
 * ``"naive"``: the pairwise loop at any size.
 
 A device-resident library (:class:`.ops.hamming_cuda.IncrementalDeviceLibrary`,
@@ -26,44 +41,159 @@ any size; ``host`` and ``naive`` keep to the host.
 
 from __future__ import annotations
 
+import os
 from typing import Iterable, Sequence
 
 import numpy as np
 import torch
 
-from vid_dup_finder_lib_tpu.search import _BATCHED_REFS_THRESHOLD, _tolerance_int
-from vid_dup_finder_lib_tpu.search import Search as _RefSearch
-from vid_dup_finder_lib_tpu.video_hash import hashes_to_matrix
-
-from .definitions import DEFAULT_SEARCH_TOLERANCE
+from .definitions import (
+    DEFAULT_SEARCH_TOLERANCE,
+    REF_SEARCH_DURATION_HI,
+    REF_SEARCH_DURATION_LO,
+    SELF_SEARCH_DURATION_FACTOR,
+    TOLERANCE_SCALING_FACTOR,
+)
 from .match_group import MatchGroup, TooFewEntries
 from .ops.hamming import banded_adjacency, refs_adjacency
 from .ops.hamming_band import banded_adjacency_band
 from .ops.hamming_cuda import IncrementalDeviceLibrary, banded_adjacency_cuda
 from .utils.device import resolve_device
-from .video_hash import VideoHash
+from .video_hash import VideoHash, VideoHashBatch, hashes_to_matrix
 
 BACKENDS = ("auto", "device", "band", "host", "naive")
 
+# auto backend: the device adjacency from this many entries up
+_DEVICE_SEARCH_THRESHOLD = 4096
 
-class Search(_RefSearch):
-    """Sorted hash store for duplicate searches, sweeping on ``device``."""
+# search_with_references batches the references from this many up
+_BATCHED_REFS_THRESHOLD = 64
+
+
+def _sort_key(h: VideoHash):
+    # search_algorithm.rs:54-60 — (duration, src_path); PathBuf compares
+    # bytewise, which os.fsencode reproduces for any unicode path.
+    return (h.duration, os.fsencode(h.src_path))
+
+
+def _tolerance_int(tolerance: float) -> int:
+    # `(tolerance * 1000.0) as u32` — Rust float->u32 casts saturate at 0.
+    return max(0, int(tolerance * TOLERANCE_SCALING_FACTOR))
+
+
+class Search:
+    """Sorted hash store for duplicate searches (search_algorithm.rs:19-199),
+    sweeping on ``device``."""
 
     def __init__(
         self,
         hashes: Iterable[VideoHash] = (),
         device: torch.device | str | None = None,
-    ) -> None:
-        super().__init__(hashes)
+    ) -> None:  # Search::from + seed
         self.device = resolve_device(device)
+        # A VideoHashBatch (many_from_packed_u32) carries its duration,
+        # bytewise-path and packed-matrix columns, so the constructor does
+        # no per-object Python work.
+        packed_mat: np.ndarray | None = None
+        durations = paths = None
+        if (
+            isinstance(hashes, VideoHashBatch)
+            and hashes.arrays_valid
+            and hashes.paths_bytes is not None
+        ):
+            durations = hashes.durations
+            paths = hashes.paths_bytes
+            packed_mat = hashes.packed_u32
+        elif isinstance(hashes, VideoHashBatch) and hashes.arrays_valid:
+            packed_mat = hashes.packed_u32
+        entries = list(hashes)
+        # Vectorised (duration, bytewise-path) sort: PathBuf compares
+        # bytewise and numpy's S dtype does too, so an all-ASCII path
+        # array sorts identically under np.lexsort (stable, like Python's
+        # sorted).  Non-ASCII paths (where UTF-8 byte order and str
+        # code-point order can disagree on surrogate-escaped bytes) take
+        # the exact Python key.
+        if entries and durations is None:
+            durations = np.fromiter(
+                (e.duration for e in entries), dtype=np.int64, count=len(entries)
+            )
+            try:
+                paths = np.array([os.fspath(e.src_path) for e in entries], dtype=np.bytes_)
+            except (UnicodeEncodeError, TypeError, ValueError):
+                paths = None
+        # whether the constructor re-sorted the input: the identity order
+        # of attach_device_library(lib, None) is only trusted when it did not
+        self._ctor_resorted: bool | None = False
+        if entries:
+            if paths is not None:
+                # O(n) sortedness check first: bulk handoffs arrive sorted
+                is_sorted = bool((durations[1:] >= durations[:-1]).all()) and bool(
+                    ((durations[1:] != durations[:-1]) | (paths[1:] >= paths[:-1])).all()
+                )
+                order = None if is_sorted else np.lexsort((paths, durations))
+            else:
+                keys = [_sort_key(e) for e in entries]
+                order = np.array(sorted(range(len(entries)), key=keys.__getitem__), np.int64)
+                if np.array_equal(order, np.arange(len(entries))):
+                    order = None
+            # the Python-key sort leaves the order unknown to the identity
+            # check of attach_device_library(lib, None), as in the JAX package
+            self._ctor_resorted = order is not None if paths is not None else None
+            if order is not None:
+                ent_arr = np.empty(len(entries), dtype=object)
+                ent_arr[:] = entries
+                entries = ent_arr[order].tolist()
+                durations = durations[order]
+                if packed_mat is not None:
+                    # the batch's matrix follows its entries (the JAX
+                    # package drops it on non-ASCII paths)
+                    packed_mat = np.ascontiguousarray(packed_mat[order])
+        if durations is None:
+            durations = np.zeros(0, dtype=np.int64)
+        self.entries: list[VideoHash] = entries
+        self.matched = np.zeros(len(self.entries), dtype=bool)
+        self._durations = durations
+        # CSR adjacency: row i's in-tolerance candidates (sorted, j > i)
+        # are _adj_j[_adj_off[i] : _adj_off[i + 1]]
+        self._adj_j: np.ndarray | None = None
+        self._adj_off: np.ndarray | None = None
+        self._tol_of_adjacency: int | None = None
+        # attached IncrementalDeviceLibrary, the insertion index of each
+        # sorted entry, and the library's rows in sorted order (refs path)
+        self._library: IncrementalDeviceLibrary | None = None
+        self._library_order: np.ndarray | None = None
+        self._cands_dev: torch.Tensor | None = None
+        # host packed matrix, built once (a VideoHashBatch seeds it)
+        self._packed_mat: np.ndarray | None = packed_mat
+
+    def _packed_matrix(self) -> np.ndarray:
+        if self._packed_mat is None:
+            self._packed_mat = hashes_to_matrix(self.entries)
+        return self._packed_mat
 
     def seed(self, new_entries: Iterable[VideoHash]) -> None:
-        super().seed(new_entries)
+        self.entries = sorted(list(self.entries) + list(new_entries), key=_sort_key)
+        self.matched = np.zeros(len(self.entries), dtype=bool)
+        self._durations = np.array([e.duration for e in self.entries], dtype=np.int64)
+        self._adj_j = self._adj_off = None
+        # the attached library no longer covers the entries
+        self._cands_dev = None
+        self._library = None
+        self._library_order = None
+        self._packed_mat = None
         # the entries were re-sorted: attach_device_library(lib, None)
-        # must spot-check the library's order again
+        # must spot-check the library's order again (the JAX package
+        # keeps the old flag here)
         self._ctor_resorted = None
 
+    # -- distance plumbing ---------------------------------------------------
+
+    def _distance(self, i: int, j: int) -> int:
+        return self.entries[i].hamming_distance(self.entries[j])
+
     def _ensure_adjacency(self, tolerance_int: int, backend: str) -> None:
+        """For every entry i, the sorted candidate indices j > i within the
+        self-search duration window and Hamming tolerance."""
         if self._adj_j is not None and self._tol_of_adjacency == tolerance_int:
             return
         bounds = self._self_search_bounds()
@@ -87,6 +217,105 @@ class Search(_RefSearch):
         self._adj_j = pairs_j
         self._adj_off = np.searchsorted(pairs_i, np.arange(len(self.entries) + 1))
         self._tol_of_adjacency = tolerance_int
+
+    def _self_search_bounds(self) -> np.ndarray:
+        """For each i, the exclusive upper index bound of the +10% duration
+        window (search_algorithm.rs:99)."""
+        thresh = (
+            self._durations.astype(np.float64) * SELF_SEARCH_DURATION_FACTOR
+        ).astype(np.int64)  # trunc, like `as u32`
+        return np.searchsorted(self._durations, thresh, side="right")
+
+    # -- searches ------------------------------------------------------------
+
+    def search_self(self, tolerance: float, backend: str = "auto") -> list[list[str]]:
+        """All-pairs greedy dedup (search_algorithm.rs:81-171)."""
+        n = len(self.entries)
+        if n == 0:
+            return []
+        tol = _tolerance_int(tolerance)
+
+        use_adjacency = backend != "naive" and (
+            backend in ("device", "host", "band")
+            or n >= _DEVICE_SEARCH_THRESHOLD
+            or self._library is not None
+        )
+        if use_adjacency:
+            self._ensure_adjacency(tol, backend)
+
+        bounds = self._self_search_bounds()
+        matched = self.matched
+        ret: list[list[str]] = []
+        if use_adjacency:
+            # greedy consume, replaying the reference's consume order:
+            # (a) within one target's scan every still-unmatched
+            #     in-tolerance candidate is consumed at once
+            #     (search_algorithm.rs:149-156);
+            # (b) rows with no in-tolerance candidate are skipped: they
+            #     form no group and consume nothing, and since candidates
+            #     satisfy j > lhs an empty row is never a later row's
+            #     candidate.  The reference's all-visited post-condition
+            #     (search_algorithm.rs:131-136) is restored by the fill.
+            rows = np.nonzero(self._adj_off[1:] > self._adj_off[:-1])[0]
+            for lhs in rows:
+                lhs = int(lhs)
+                if matched[lhs]:
+                    continue
+                matched[lhs] = True
+                cands = self._adj_j[self._adj_off[lhs] : self._adj_off[lhs + 1]]
+                sel = cands[~matched[cands]]
+                if sel.size == 0:
+                    continue
+                match_vec = [self.entries[int(j)].src_path for j in sel]
+                matched[sel] = True
+                match_vec.append(self.entries[lhs].src_path)
+                ret.append(match_vec)
+            matched[:] = True
+        else:
+            for lhs in range(n):
+                if matched[lhs]:
+                    continue
+                matched[lhs] = True
+                match_vec = []
+                for j in range(lhs + 1, int(bounds[lhs])):
+                    if matched[j]:
+                        continue
+                    if self._distance(lhs, int(j)) <= tol:
+                        match_vec.append(self.entries[int(j)].src_path)
+                        matched[j] = True
+                if match_vec:
+                    match_vec.append(self.entries[lhs].src_path)
+                    ret.append(match_vec)
+        ret.reverse()  # search_algorithm.rs:136,167
+        return ret
+
+    def _duration_slice(self, duration_secs: int) -> tuple[int, int]:
+        """[0.95 d, 1.05 d] window bounds (search_algorithm.rs:173-185)."""
+        lo = int(float(duration_secs) * REF_SEARCH_DURATION_LO)
+        hi = int(float(duration_secs) * REF_SEARCH_DURATION_HI)
+        lhs = int(np.searchsorted(self._durations, lo, side="left"))
+        rhs = int(np.searchsorted(self._durations, hi, side="right"))
+        return lhs, rhs
+
+    def search_one(self, target: VideoHash, tolerance: float, consume: bool) -> list[str]:
+        """(search_algorithm.rs:63-77)"""
+        tol = _tolerance_int(tolerance)
+        lhs, rhs = self._duration_slice(target.duration)
+        ret: list[str] = []
+        if rhs > lhs:
+            dists = _distances_one_to_many(target, self.entries[lhs:rhs])
+            for off, d in enumerate(dists):
+                j = lhs + off
+                if not self.matched[j] and d <= tol:
+                    ret.append(self.entries[j].src_path)
+                    if consume:
+                        self.matched[j] = True
+        return ret
+
+    def search_with_references(
+        self, references: Sequence[VideoHash], tolerance: float, consume: bool
+    ) -> list[list[str]]:
+        return [self.search_one(r, tolerance, consume) for r in references]
 
     def search_with_references_batched(
         self, references: Sequence[VideoHash], tolerance: float
@@ -214,6 +443,14 @@ class Search(_RefSearch):
         if self._cands_dev is None and self._library is not None:
             self._cands_dev = self._library.sorted_rows(self._library_order)
         return self._cands_dev
+
+
+def _distances_one_to_many(target: VideoHash, entries: list[VideoHash]) -> np.ndarray:
+    if not entries:
+        return np.zeros(0, dtype=np.int64)
+    mat = hashes_to_matrix(entries)
+    t = target.packed_u32()[None, :]
+    return np.bitwise_count(mat ^ t).sum(axis=1).astype(np.int64)
 
 
 def _groups(matches: list[list[str]]) -> list[MatchGroup]:
