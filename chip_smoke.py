@@ -37,7 +37,8 @@ computes the same function, that call's (``library_ms``), and its bound:
 the least time the card could take for the same work (``bound_ms``), the
 larger of the bytes it must move over the memory rate and its operations
 over the peak rate of their type (``bound_by``), from this run's inputs
-and the published H100 SXM peaks below; then the card's name and power
+and the published H100 SXM peaks below, and the kernel's share of it
+(``bound_share``); then the card's name and power
 limit from nvidia-smi; last, ``{"ok": true, "device": {...}}``.
 """
 
@@ -89,6 +90,13 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12
 INT8_OPS_PER_S = 1979e12
 FP32_FLOPS_PER_S = 67e12
+# K1's separable DCT per cube: 16-point passes along y (16 t x 16 x), then x
+# (16 t x 10 k), then t (10 j x 10 k), 10 kept outputs each
+DCT_PASSES = 16 * 16 + 16 * 10 + 10 * 10  # 516
+# least fp32 work of one pass: DCT-II row k is even or odd about the middle,
+# so 8 sums and 8 differences (16 FADD), then 8 FMAs per kept output (80)
+PASS_FP32_INSTRUCTIONS = 16 + 10 * 8  # 96, 49,536 per cube
+PASS_MACS = 10 * 16  # the kernel's design: 160 FMAs per pass, 82,560 per cube
 
 
 def require(cond: bool, what: str) -> None:
@@ -451,10 +459,12 @@ def main() -> int:
     from vid_dup_finder_lib_tpu_torch.ops.hamming import banded_adjacency
     from vid_dup_finder_lib_tpu_torch.ops.hash_kernel import (
         _d3_on,
+        _dct_on,
         full_fp32_matmul,
         hash_cubes,
         hash_cubes_plain,
     )
+    from vid_dup_finder_lib_tpu_torch.tools.k1_flat_cubes import flat_cube_report
     from vid_dup_finder_lib_tpu_torch.utils import cuda_build
 
     dev = torch.device("cuda")
@@ -523,6 +533,12 @@ def main() -> int:
     ]
     require(max(gold) <= 2 and sum(gold) <= 8,
             f"kernel vs golden: worst {max(gold)}, total {sum(gold)}")
+    # flat cubes (every value 0..255): all AC coefficients are exactly 0, so
+    # their AC signs are fp32 rounding noise in any order; only bin 0 and the
+    # all-zero words of the 128 cube are held, the rest is reported
+    flat = flat_cube_report(hash_cubes, hash_cubes_plain, hash_bits_golden, dev)
+    require(flat["same_on_two_launches"], "flat cubes: two launches differ")
+    require(flat["bin0_exact"] and flat["cube128_zero"], "flat cubes: bin 0 or the 128 cube")
     k1_ms = cuda_ms(lambda: hash_cubes(cubes))
     k1_plain_ms = cuda_ms(lambda: hash_cubes_plain(cubes))
     # yardstick only: K1's product as one fp32 torch.matmul, TF32 off (the
@@ -532,15 +548,31 @@ def main() -> int:
     with full_fp32_matmul():
         k1_library_ms = cuda_ms(lambda: torch.matmul(centred, operator))
     del centred
+    # K1's work: the separable DCT with the even/odd split, 49,536 fp32-pipe
+    # instructions per cube (an FADD takes an FMA's issue slot, so each counts
+    # as the peak rate's 2 FLOP); the kernel's own 82,560 FMAs per cube are
+    # kept beside it as design_bound_ms, the collapsed operator's 1024 * 4096
+    # as collapsed_bound_ms
+    k1_bytes = nbytes(cubes, _dct_on(dev), words)
     k1_bound_ms, k1_bound_by = bound(
+        k1_bytes, 2 * N_CUBES * DCT_PASSES * PASS_FP32_INSTRUCTIONS, FP32_FLOPS_PER_S)
+    k1_design_bound_ms, _ = bound(
+        k1_bytes, 2 * N_CUBES * DCT_PASSES * PASS_MACS, FP32_FLOPS_PER_S)
+    k1_collapsed_bound_ms, _ = bound(
         nbytes(cubes, operator, words), 2 * N_CUBES * operator.shape[0] * operator.shape[1],
         FP32_FLOPS_PER_S)
     phase("hash", bound=repr("vs plain <=2 bits/hash, <=1e-4 of bits; vs golden <=2/hash, <=8 total"),
           vs_plain_bits=int(diff.sum()), vs_plain_worst=int(diff.max()),
           vs_golden_bits=sum(gold), vs_golden_worst=max(gold),
-          kernel_ms=round(k1_ms, 3), plain_ms=round(k1_plain_ms, 3),
-          library_ms=round(k1_library_ms, 3), bound_ms=round(k1_bound_ms, 3),
-          bound_by=k1_bound_by, hashes_per_s=f"{N_CUBES / (k1_ms / 1e3):.4g}")
+          kernel_ms=round(k1_ms, 4), plain_ms=round(k1_plain_ms, 3),
+          library_ms=round(k1_library_ms, 3), bound_ms=round(k1_bound_ms, 4),
+          bound_by=k1_bound_by, bound_share=round(k1_bound_ms / k1_ms, 4),
+          design_bound_ms=round(k1_design_bound_ms, 4),
+          collapsed_bound_ms=round(k1_collapsed_bound_ms, 3),
+          flat_cubes=flat["flat_cubes"], flat_vs_plain_bits=flat["vs_plain_bits"],
+          flat_vs_plain_worst=flat["vs_plain_worst"], flat_vs_golden_bits=flat["vs_golden_bits"],
+          flat_vs_golden_worst=flat["vs_golden_worst"],
+          hashes_per_s=f"{N_CUBES / (k1_ms / 1e3):.4g}")
 
     # ---- K2 + K3 at 1M: kernels vs plain versions, tile by tile and pairs
     bounds = self_bounds(durations)
@@ -607,16 +639,16 @@ def main() -> int:
     ranges = hb.band_ranges(state)
     k4_err, k4_sum_ms, k4_plain_ms = check_band_sweep(hb, state, TOL_INT)
     k4_ms = cuda_ms(lambda: [hb.band_sweep(state, TOL_INT, a, b) for a, b in ranges], reps=3)
-    # K4's outputs: the counts, and the words of every tile of the band
+    # K4's outputs: the counts, and the words of every tile with a match
     k4_bound_ms, k4_bound_by = bound(
-        sweep_inputs(state) + state.n_row_tiles * state.slots * 4
-        + int(state.n_ct.sum()) * hc.TILE * 16,
+        sweep_inputs(state) + state.n_row_tiles * state.slots * 4 + n_hits * hc.TILE * 16,
         2 * 1024 * comps, INT8_OPS_PER_S)
     phase("band_1m", bound="exact", seconds=round(band_e2e_s, 3), groups=len(band_groups),
           pairs=len(bi), ranges=len(ranges), sweep_s=round(band_sweep_s, 4),
           comps_per_s=f"{comps / band_sweep_s:.4g}", kernel_ms=round(k4_ms, 3),
           kernel_ms_checked=round(k4_sum_ms, 3), plain_ms=round(k4_plain_ms, 3),
           bound_ms=round(k4_bound_ms, 3), bound_by=k4_bound_by,
+          bound_share=round(k4_bound_ms / k4_ms, 4),
           peak_bytes=band_peak, launches=json.dumps(band_launches))
 
     # ---- dense phase B and nonzero pad bits
@@ -843,14 +875,15 @@ def main() -> int:
              replaces="vid_dup_finder_lib_tpu/ops/hash_pallas.py:58",
              launches=launches["hash_cubes"], max_abs_err=int(diff.max()),
              ms=k1_ms, plain_ms=k1_plain_ms, bound_ms=k1_bound_ms, bound_by=k1_bound_by,
-             library_ms=k1_library_ms,
+             library_ms=k1_library_ms, bound_share=k1_bound_ms / k1_ms,
+             design_bound_ms=k1_design_bound_ms, collapsed_bound_ms=k1_collapsed_bound_ms,
              new_phase_launches={"device_preproc_1080p": preproc_launches,
                                  "cli": cli["hash_cubes"]}),
         dict(name="band_counts_kernel", route="cuda", source=csrc + "hamming_band.cu",
              replaces="vid_dup_finder_lib_tpu/ops/hamming_pallas.py:559",
              launches=launches["band_counts"], max_abs_err=k2_err,
              ms=k2_ms, plain_ms=k2_plain_ms, bound_ms=k2_bound_ms, bound_by=k2_bound_by,
-             library_ms=None,
+             library_ms=None, bound_share=k2_bound_ms / k2_ms,
              refs_launches=refs_launches["band_counts"], refs_max_abs_err=k2_refs_err,
              refs_ms=k2_refs_ms, refs_plain_ms=k2_refs_plain_ms, refs_bound_ms=k2_refs_bound_ms,
              new_phase_launches={f"library_1m_{k}": v["band_counts"] for k, v in lib_launches.items()}),
@@ -866,7 +899,7 @@ def main() -> int:
              replaces="vid_dup_finder_lib_tpu/ops/hamming_band.py:50",
              launches=band_launches["band_sweep"], max_abs_err=k4_err,
              ms=k4_ms, plain_ms=k4_plain_ms, bound_ms=k4_bound_ms, bound_by=k4_bound_by,
-             library_ms=None,
+             library_ms=None, bound_share=k4_bound_ms / k4_ms,
              new_phase_launches={f"library_1m_{k}": v["band_sweep"] for k, v in lib_launches.items()}),
     ]
     print(json.dumps({"kernels": kernels}))

@@ -133,3 +133,61 @@ def test_search_band_matches_jax_and_other_backends(library, tolerance):
         assert ours == tvdf.search(hashes, tolerance, backend=backend, device=CPU)
     if tolerance == 0.35:
         assert {frozenset(g.contained_paths()) for g in ours} == planted
+
+
+# -- K4's epilogue: wgmma's D fragment -> K3's word layout ------------------
+
+
+def _every_fourth(x: int, m: int) -> int:
+    """band_sweep.cu every_fourth: bits m, m + 4, ..., m + 28 -> bits 0..7."""
+    x = (x >> m) & 0x11111111
+    x = (x | (x >> 3)) & 0x03030303
+    x = (x | (x >> 6)) & 0x000F000F
+    return (x | (x >> 12)) & 0xFF
+
+
+def k4_epilogue_words(pred: np.ndarray) -> np.ndarray:
+    """bool[128 rows, 128 columns] -> uint32[4, 128], the way
+    ``band_sweep_kernel`` builds a tile's words: warp q of warpgroup g holds
+    rows 64g + 16q + lane // 4 (+8 for fragment entries e >= 2), columns
+    8j + 2 (lane % 4) (+1 for odd e); four ballots per j; lane L keeps those
+    of j = L // 2 and writes the 16-bit halves of columns 8j + 2m + L % 2
+    into half q % 2 of word 2g + q // 2."""
+    words = np.zeros((4, 128), np.uint32)
+    for g in range(2):
+        for q in range(4):
+            row0 = 64 * g + 16 * q
+            ballot = np.zeros((16, 4), np.int64)
+            for lane in range(32):
+                for j in range(16):
+                    for e in range(4):
+                        r = row0 + lane // 4 + 8 * (e >> 1)
+                        c = 8 * j + 2 * (lane % 4) + (e & 1)
+                        ballot[j, e] |= int(pred[r, c]) << lane
+            for lane in range(32):
+                jl, e1 = lane // 2, lane % 2
+                top, bot = int(ballot[jl, e1]), int(ballot[jl, 2 + e1])
+                for m in range(4):
+                    c = 8 * jl + 2 * m + e1
+                    half = _every_fourth(top, m) | (_every_fourth(bot, m) << 8)
+                    words[2 * g + q // 2, c] |= np.uint32(half << (16 * (q % 2)))
+    return words
+
+
+@pytest.mark.parametrize("kind", ["random", "sparse", "all", "diagonal", "one_row", "one_column"])
+def test_k4_fragment_to_word_mapping(kind):
+    """The index arithmetic of K4's word epilogue, rehearsed in NumPy, gives
+    exactly ``pack_words`` of the same predicate tile (K3's layout: word
+    [w, c] holds rows 32w .. 32w + 31 of column c, bit b = row 32w + b)."""
+    rng = np.random.default_rng(len(kind))
+    pred = {
+        "random": rng.random((128, 128)) < 0.5,
+        "sparse": rng.random((128, 128)) < 0.01,
+        "all": np.ones((128, 128), bool),
+        "diagonal": np.eye(128, dtype=bool),
+        "one_row": np.broadcast_to(np.arange(128)[:, None] == 77, (128, 128)),
+        "one_column": np.broadcast_to(np.arange(128)[None, :] == 45, (128, 128)),
+    }[kind]
+    want = hc.pack_words(torch.from_numpy(np.ascontiguousarray(pred)).view(4, 32, 128))
+    got = k4_epilogue_words(pred)
+    np.testing.assert_array_equal(got.view(np.int32), want.numpy())

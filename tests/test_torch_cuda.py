@@ -12,7 +12,11 @@ import pytest
 import torch
 
 import vid_dup_finder_lib_tpu_torch as tvdf
+from vid_dup_finder_lib_tpu.ops.golden import dct2_matrix, hash_bits_golden
+from vid_dup_finder_lib_tpu.video_hash import VideoHash
+from vid_dup_finder_lib_tpu_torch import convert
 from tests.test_torch_hamming import LIBRARIES, _library
+from tests.test_torch_hash import golden_corpus, separable_hash_fp32
 from tests.test_torch_preproc import RESIZE_CASES, _golden_cubes, _letterbox_frames, _raw_batch
 from tests.test_torch_refs import CASES
 from vid_dup_finder_lib_tpu.ops.letterbox import cropdetect_letterbox
@@ -47,6 +51,89 @@ def test_hash_kernel_matches_plain(dev):
     d = np.bitwise_count((got ^ want).cpu().numpy().view(np.uint32)).sum(1)
     assert d.max() <= 2 and d.sum() <= 8, (d.max(), d.sum())
     assert not (got[:, -1].cpu().numpy().view(np.uint32) >> 8).any()
+
+
+# -- K1: the separable fp32 DCT ------------------------------------------------
+
+
+def _cubes(n, seed):
+    """Half uniform, half low-contrast (128 +/- 2) cubes."""
+    rng = np.random.default_rng(seed)
+    uni = rng.integers(0, 256, (n - n // 2, 16, 16, 16), dtype=np.uint8)
+    low = (128 + rng.integers(-2, 3, (n // 2, 16, 16, 16))).astype(np.uint8)
+    return np.concatenate([uni, low])
+
+
+def _k1(dev, cubes_np, **kw):
+    before = hk.hash_cubes.launches
+    got = hk.hash_cubes(torch.from_numpy(cubes_np).to(dev), **kw)
+    torch.cuda.synchronize()
+    assert hk.hash_cubes.launches == before + (cubes_np.shape[0] > 0)
+    assert got.dtype == torch.int32 and got.shape == (cubes_np.shape[0], 32)
+    return got.cpu().numpy().view(np.uint32)
+
+
+@pytest.mark.parametrize("batch", [0, 1, 17, 129, 4099])
+def test_k1_batch_sizes_match_plain(dev, batch):
+    """B = 0, 1, 17 (a device-preprocessing flush), odd and not a multiple
+    of the kernel's cubes per block: <= 2 bits per hash from the plain
+    version, bins 1000..1023 zero."""
+    cubes = _cubes(batch, seed=batch)
+    got = _k1(dev, cubes)
+    want = hk.hash_cubes_plain(torch.from_numpy(cubes)).numpy().view(np.uint32)
+    d = np.bitwise_count(got ^ want).sum(1)
+    assert d.max(initial=0) <= 2, d.max()
+    assert not (got[:, -1] >> np.uint32(8)).any()
+
+
+def test_k1_equals_its_fp32_order(dev):
+    """The kernel computes exactly the contraction order that the CPU
+    tests hold to golden (tests/test_torch_hash.py separable_hash_fp32)."""
+    cubes = golden_corpus()
+    np.testing.assert_array_equal(_k1(dev, cubes), separable_hash_fp32(cubes))
+
+
+def test_k1_orientation_on_kernel(dev):
+    """cube[t, x, y] = frame_t[y, x] - 128 on the kernel: a cube hashes
+    within 2 bits of golden and its x/y transpose far from it."""
+    rng = np.random.default_rng(6)
+    cube = rng.integers(0, 256, (1, 16, 16, 16), dtype=np.uint8)
+    gold = hash_bits_golden(cube[0])
+    ours = VideoHash.from_packed_u32(_k1(dev, cube)[0]).hash_bits()
+    swapped = VideoHash.from_packed_u32(
+        _k1(dev, np.ascontiguousarray(cube.transpose(0, 1, 3, 2)))[0]).hash_bits()
+    assert (ours != gold).sum() <= 2
+    assert (swapped != gold).sum() > 100
+
+
+def test_k1_refuses_the_collapsed_operator(dev):
+    cubes = torch.zeros((2, 16, 16, 16), dtype=torch.uint8, device=dev)
+    d3 = hk._d3_on(dev)
+    with pytest.raises(ValueError, match="dct="):
+        hk.hash_cubes(cubes, d3=d3)
+
+
+def test_k1_factor_override(dev):
+    """dct= with the JAX package's DCT rows carried across gives the
+    default factor's words; a factor of the wrong shape raises."""
+    cubes = _cubes(64, seed=3)
+    dct = convert.dct_rows_from_numpy(dct2_matrix(16, np.float64)[:10], device=dev)
+    np.testing.assert_array_equal(_k1(dev, cubes, dct=dct), _k1(dev, cubes))
+    with pytest.raises(ValueError, match="dct must be"):
+        hk.hash_cubes(torch.from_numpy(cubes).to(dev), dct=dct.T.contiguous())
+
+
+@pytest.mark.parametrize("value", [0, 77, 128, 255])
+def test_k1_flat_cubes(dev, value):
+    """Flat cubes: the AC signs are rounding noise for any fp32 order, but
+    the kernel gives the same words on two launches, bin 0 equal to the
+    golden model's, and all-zero words for 128."""
+    cubes = np.full((3, 16, 16, 16), value, np.uint8)
+    first = _k1(dev, cubes)
+    np.testing.assert_array_equal(first, _k1(dev, cubes))
+    assert ((first[:, 0] & 1) == int(hash_bits_golden(cubes[0])[0])).all()
+    if value == 128:
+        assert not first.any()
 
 
 @pytest.mark.parametrize("tol", [0, 350, 1100])
@@ -309,3 +396,66 @@ def test_k2_state_after_a_later_append(dev):
     assert torch.equal(_k2_equal(st, 350), before)
     grown = lib.state(np.arange(lib.n), np.full(lib.n, lib.n))
     assert int(_k2_equal(grown, 350).sum()) >= int(before.sum()) + n % hc.TILE
+
+
+# -- K4 on the tensor cores: counts and hit-tile words equal to the plain ----
+
+
+def _k4_equal(st, tol, budget=None):
+    """K4 over every range of ``band_ranges(st, budget)``: counts equal to
+    the plain version's everywhere, words equal on every tile with a match;
+    returns the counts, row tiles stacked."""
+    out = []
+    for rt0, rt1 in hb.band_ranges(st, budget):
+        before = hb.band_sweep.launches
+        counts, words = hb.band_sweep(st, tol, rt0, rt1)
+        torch.cuda.synchronize()
+        assert hb.band_sweep.launches == before + 1
+        want_counts, want_words = hb.band_sweep_plain(st, tol, rt0, rt1)
+        assert counts.dtype == torch.int32 and counts.shape == want_counts.shape
+        assert torch.equal(counts, want_counts), int((counts - want_counts).abs().max())
+        r, s = torch.nonzero(want_counts, as_tuple=True)
+        idx = hb.tile_offsets(st, rt0, rt1)[r] + s
+        assert torch.equal(words[idx], want_words[idx])
+        out.append(counts)
+    return torch.cat(out) if out else None
+
+
+@pytest.mark.parametrize("budget", [1, 3, None])
+@pytest.mark.parametrize("tol", [-1, 0, 350, 1024, 5000])
+def test_k4_equals_plain_at_tolerance_edges(dev, tol, budget):
+    """Pairs planted at ham == tol and tol + 1, nonzero pad bits, n not a
+    multiple of 128, ranges of one row tile, of three band tiles, and one
+    range."""
+    packed, bounds = _planted_at(1000, tol, seed=tol + 7)
+    st = hc.SearchState(packed, bounds, dev)
+    got = _k4_equal(st, tol, budget)
+    assert torch.equal(got, hc.band_counts_plain(st, tol))
+    if 0 <= tol <= 1023:
+        assert int(got.sum()) >= 199
+
+
+@pytest.mark.parametrize("n", [1, 2, 100, 127, 128, 129, 256])
+@pytest.mark.parametrize("tol", [0, 350, 1024])
+def test_k4_small_and_single_tile(dev, n, tol):
+    packed, bounds = _planted_at(n, tol, seed=n)
+    _k4_equal(hc.SearchState(packed, bounds, dev), tol, 1)
+
+
+def test_k4_state_after_a_later_append(dev):
+    """A zero-copy resident state whose pad rows a later ``append`` fills:
+    K4's counts and words do not change."""
+    packed, bounds = _planted_at(1000, 350, seed=11)
+    lib = IncrementalDeviceLibrary(dev, capacity=2048)
+    lib.append(packed)
+    n = lib.n
+    st = lib.state(np.arange(n), np.full(n, n))
+    assert st.packed.data_ptr() == lib.packed.data_ptr()
+    before = _k4_equal(st, 350)
+    lib.append(packed[n - n % hc.TILE :])
+    assert st.packed.data_ptr() == lib.packed.data_ptr() and st.packed[n:].any()
+    assert torch.equal(_k4_equal(st, 350), before)
+    ki, kj = hb.banded_adjacency_band(None, None, 350, state=st)
+    pi, pj = hc.banded_adjacency_plain(st, 350)
+    np.testing.assert_array_equal(ki, pi)
+    np.testing.assert_array_equal(kj, pj)

@@ -7,7 +7,9 @@
   ``IncrementalDeviceLibrary`` (``np.asarray(lib._packed[:lib.n])``) to
   the port's library;
 * :func:`d3_from_numpy` takes ``hash_pallas._d3_operator()``'s array to
-  the port's device operator.
+  the plain version's collapsed operator;
+* :func:`dct_rows_from_numpy` takes ``golden.dct2_matrix(16)[:10]`` to the
+  CUDA hash kernel's f32[10, 16] factor.
 """
 
 from __future__ import annotations
@@ -15,7 +17,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .definitions import HASH_BITS_PADDED, HASH_WORDS32
+from .definitions import DCT_SIZE, HASH_BITS_PADDED, HASH_SIZE, HASH_WORDS32
 from .ops.hamming_cuda import IncrementalDeviceLibrary, SearchState
 from .ops.hash_kernel import d3_device_layout
 from .utils.device import resolve_device
@@ -58,5 +60,18 @@ def d3_from_numpy(
 ) -> torch.Tensor:
     """A [1024, 4096] f32 collapsed-DCT operator (columns in the
     ``(t, x, y)`` order of ``hash_pallas._d3_operator``) -> the port's
-    device operator, for ``hash_cubes(..., d3=...)``."""
+    plain version's operator, for ``hash_cubes(..., d3=...)`` on a CPU
+    tensor."""
     return torch.from_numpy(d3_device_layout(arr)).to(resolve_device(device))
+
+
+def dct_rows_from_numpy(
+    arr: np.ndarray, device: torch.device | str | None = None
+) -> torch.Tensor:
+    """The kept rows of the DCT-II matrix, [10, 16] in any float type
+    (``golden.dct2_matrix(16, np.float64)[:10]``) -> the CUDA hash kernel's
+    f32 factor, for ``hash_cubes(..., dct=...)``."""
+    arr = np.asarray(arr)
+    if arr.shape != (HASH_SIZE, DCT_SIZE):
+        raise ValueError(f"DCT rows must be [{HASH_SIZE}, {DCT_SIZE}], got {arr.shape}")
+    return torch.from_numpy(arr.astype(np.float32)).to(resolve_device(device))

@@ -1,5 +1,5 @@
-// Tile geometry and the packed-row Hamming distance shared by the sweep
-// kernels (hamming_band.cu, band_sweep.cu).
+// Tile geometry of the sweep kernels (hamming_band.cu, band_sweep.cu, via
+// pm1_wgmma.cuh), and the packed-row Hamming distance of band_pack_kernel.
 
 #pragma once
 

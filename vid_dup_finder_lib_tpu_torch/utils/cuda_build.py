@@ -39,10 +39,10 @@ _I32 = ctypes.c_int32
 _I64 = ctypes.c_int64
 # C signatures of the entry points (csrc/*.cu); every one returns cudaError_t
 _SIGNATURES = {
-    # cubes u8[B,4096], d3 f32[4096,1024], out i32[B,32], B, stream
+    # cubes u8[B,4096], dct f32[10,16] (kept DCT-II rows), out i32[B,32], B, stream
     "vdf_hash_dct": (_P, _P, _P, _I64, _P),
-    # rows, cols, bounds, row_lo (or NULL), first_ct, n_ct, runs i32[W,2],
-    # counts (zeroed), W, slots, n, tol, stream
+    # rows, cols, bounds, row_lo (or NULL), first_ct, n_ct,
+    # counts (zeroed), row_tiles, slots, n, tol, stream
     "vdf_band_counts": (_P, _P, _P, _P, _P, _P, _P, _I64, _I32, _I32, _I32, _P),
     # rows, cols, bounds, row_lo (or NULL), hits i32[H,2],
     # words i32[H,4,128], H, n, tol, stream
