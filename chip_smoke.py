@@ -25,9 +25,15 @@ with the kernel launch counts set to 0 just before it and read just after:
   the second time from its cache.
 
 It builds every CUDA kernel from ``vid_dup_finder_lib_tpu_torch/csrc`` and
-holds each kernel to its plain PyTorch version on the same inputs.  Any
-mismatch raises and the script exits non-zero.  It refuses to run without
-CUDA.
+holds each kernel to its plain PyTorch version on the same inputs.  K3 is
+also timed where phase B is not small: on the hit list of a library with
+many duplicates (``dense``) and on a list of every band tile of a run of
+row tiles of the 1M library (``pack_full``, at least 65,536 tiles), so
+that its time per tile can be read beside K2's.  One K3 launch on a short
+hit list is shorter than its wrapper's host work, so K3's ``ms`` is taken
+with the launches queued behind a long kernel (``queued_ms``); the time of
+one call between two events is kept as ``call_ms``.  Any mismatch raises
+and the script exits non-zero.  It refuses to run without CUDA.
 
 Output: one progress line per phase; then a JSON line with each kernel's
 launch count in its path's run (and in each later phase that launches it,
@@ -77,6 +83,8 @@ N_VIDEOS = 64  # synthetic 1080p videos of device_preproc_1080p
 VIDEO_SHAPE = (16, 1080, 1920)
 N_GOLDEN_VIDEOS = 4  # videos held to the golden cubes bit for bit
 HOST_WORKERS = 6  # processes running the host letterbox check
+FULL_LIST_TILES = 65_536  # least length of pack_full's hit list
+FULL_LIST_SAMPLE = 31  # 1 tile in 31 of it is held to the plain version
 # synthetic bars (top, bottom, left, right, grey level): letterbox,
 # pillarbox, windowbox, asymmetric and none, so the videos fall into
 # several crop buckets
@@ -124,6 +132,24 @@ def cuda_ms(fn, reps: int = 5) -> float:
     return statistics.median(times)
 
 
+def queued_ms(fn, busy, launches: int = 20) -> float:
+    """Device ms of one ``fn()`` whose launch the host does not hold up:
+    ``busy()`` first occupies the card, so that the ``launches`` calls are
+    all enqueued before the first can start, and the time from the end of
+    ``busy`` to the end of the last is the kernels' own."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    busy()
+    start.record()
+    for _ in range(launches):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / launches
+
+
 def timed(fn):
     """(fn(), device ms of that one call by CUDA events)."""
     start = torch.cuda.Event(enable_timing=True)
@@ -162,6 +188,27 @@ def k2_bound(state) -> tuple[float, str]:
     one int32 count per (row tile, slot)."""
     return bound(sweep_inputs(state) + state.n_row_tiles * state.slots * 4,
                  2 * 1024 * state.comparisons(), INT8_OPS_PER_S)
+
+
+def k3_bound(state, hits) -> tuple[float, str]:
+    """K3's work: per hit tile one 1024-deep +/-1 dot product for each of
+    its 128 x 128 pairs, its packed row and column tiles read and 2 KB of
+    words written; the hit list and the per-row windows read once."""
+    tile = 128
+    n_hits = hits.shape[0]
+    return bound(n_hits * (2 * tile * 128 + tile * 16) + nbytes(hits, state.bounds, state.row_lo),
+                 2 * 1024 * tile * tile * n_hits, INT8_OPS_PER_S)
+
+
+def band_tiles(hc, state, rt0: int, least: int) -> torch.Tensor:
+    """int32[H, 2]: every band tile (row tile, column tile) of the row
+    tiles from ``rt0`` on, row-major, until at least ``least`` tiles."""
+    rt1 = rt0 + int(np.searchsorted(np.cumsum(state.n_ct[rt0:]), least)) + 1
+    require(rt1 <= state.n_row_tiles, "the band holds too few tiles for the full hit list")
+    in_band = torch.arange(state.slots, device=state.device)[None, :] < state.n_ct_dev[:, None]
+    in_band[:rt0] = False
+    in_band[rt1:] = False
+    return hc.hit_tiles(state, in_band)
 
 
 def bit_diff(a: torch.Tensor, b: torch.Tensor) -> int:
@@ -592,10 +639,12 @@ def main() -> int:
     k2_bound_ms, k2_bound_by = k2_bound(state)
     k3_ms = cuda_ms(lambda: hc.band_pack(state, hits, TOL_INT))
     k3_plain_ms = cuda_ms(lambda: hc.band_pack_plain(state, hits, TOL_INT))
+    # one K3 launch is shorter than its wrapper's host work, which the time
+    # above includes; queued behind K2 the launches run back to back
+    k3_queued_ms = queued_ms(lambda: hc.band_pack(state, hits, TOL_INT),
+                             lambda: hc.band_counts(state, TOL_INT))
     n_hits = hits.shape[0]
-    k3_bound_ms, k3_bound_by = bound(
-        n_hits * (2 * hc.TILE * 128 + hc.TILE * 16) + nbytes(hits, state.bounds, state.row_lo),
-        2 * 1024 * hc.TILE * hc.TILE * n_hits, INT8_OPS_PER_S)
+    k3_bound_ms, k3_bound_by = k3_bound(state, hits)
     t0 = time.perf_counter()
     pairs_i, pairs_j = hc.banded_adjacency_cuda(state, TOL_INT)
     sweep_s = time.perf_counter() - t0
@@ -610,8 +659,44 @@ def main() -> int:
           counts_ms=round(k2_ms, 3), counts_plain_ms=round(k2_plain_ms, 3),
           counts_bound_ms=round(k2_bound_ms, 3), counts_bound_by=k2_bound_by,
           counts_bound_share=round(k2_bound_ms / k2_ms, 4), counts_max_abs_err=k2_err,
-          pack_ms=round(k3_ms, 3), pack_plain_ms=round(k3_plain_ms, 3),
+          pack_ms=round(k3_ms, 4), pack_queued_ms=round(k3_queued_ms, 4),
+          pack_plain_ms=round(k3_plain_ms, 3),
+          pack_bound_ms=round(k3_bound_ms, 5),
+          pack_bound_share=round(k3_bound_ms / k3_queued_ms, 4),
           launches=json.dumps({fn.__name__: fn.launches for fn in counters}))
+
+    # ---- K3 where every tile of the list is computed: all band tiles of a
+    # run of row tiles in the middle of the 1M library, beside K2's time per
+    # tile over the whole band (both per SM)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    full_hits = band_tiles(hc, state, state.n_row_tiles // 2, FULL_LIST_TILES)
+    n_full = full_hits.shape[0]
+    full_words = hc.band_pack(state, full_hits, TOL_INT)
+    sample = torch.arange(0, n_full, FULL_LIST_SAMPLE, device=dev)
+    k3_full_err = bit_diff(full_words[sample],
+                           hc.band_pack_plain(state, full_hits[sample], TOL_INT))
+    require(k3_full_err == 0, f"full hit list: words differ by up to {k3_full_err} bits")
+    # ... and every tile's popcount to K2's count of that tile
+    full_counts = torch.from_numpy(np.bitwise_count(
+        full_words.cpu().numpy().view(np.uint32)).reshape(n_full, -1).sum(1, dtype=np.int64)).to(dev)
+    rts = full_hits[:, 0].long()
+    require(torch.equal(full_counts, ck[rts, full_hits[:, 1].long() - state.first_ct_dev[rts]].long()),
+            "full hit list: a tile's words hold another number of pairs than K2 counted")
+    full_pairs = int(full_counts.sum())
+    del full_words
+    k3_full_ms = cuda_ms(lambda: hc.band_pack(state, full_hits, TOL_INT))
+    k3_full_bound_ms, _ = k3_bound(state, full_hits)
+    band_tile_count = int(state.n_ct.sum())
+    k3_full_us = k3_full_ms * 1e3 * sms / n_full
+    k2_us = k2_ms * 1e3 * sms / band_tile_count
+    phase("pack_full", bound=f"exact on 1 tile in {FULL_LIST_SAMPLE}, popcounts equal K2's on all", tiles=n_full,
+          row_tiles=int(full_hits[-1, 0] - full_hits[0, 0]) + 1, sampled=sample.shape[0],
+          pairs=full_pairs, pack_ms=round(k3_full_ms, 4),
+          pack_us_per_tile_per_sm=round(k3_full_us, 4),
+          counts_us_per_tile_per_sm=round(k2_us, 4), counts_band_tiles=band_tile_count,
+          sms=sms, bound_ms=round(k3_full_bound_ms, 4),
+          bound_share=round(k3_full_bound_ms / k3_full_ms, 4))
+    del full_hits
 
     # ---- K4: the public search(backend="band") on the 1M library, counted
     band_counters = (hb.band_sweep, hc.band_counts, hc.band_pack)
@@ -663,13 +748,33 @@ def main() -> int:
         require(np.array_equal(bi, pi) and np.array_equal(bj, pj),
                 f"{name}: K4 {len(bi)} pairs vs plain {len(pi)}")
         k4_err = max(k4_err, check_band_sweep(hb, st, TOL_INT)[0])
+        # K3 on this library's own hit list, word for word
+        lhits = hc.hit_tiles(st, hc.band_counts(st, TOL_INT))
+        lerr = bit_diff(hc.band_pack(st, lhits, TOL_INT), hc.band_pack_plain(st, lhits, TOL_INT))
+        require(lerr == 0, f"{name}: packed words differ by up to {lerr} bits")
+        k3_err = max(k3_err, lerr)
+        extra = {}
+        if name == "dense":
+            dense_hits = lhits.shape[0]
+            k3_dense_ms = cuda_ms(lambda: hc.band_pack(st, lhits, TOL_INT))
+            k3_dense_queued_ms = queued_ms(lambda: hc.band_pack(st, lhits, TOL_INT),
+                                           lambda: hc.band_counts(state, TOL_INT))
+            k3_dense_plain_ms = cuda_ms(lambda: hc.band_pack_plain(st, lhits, TOL_INT), reps=3)
+            k3_dense_bound_ms, _ = k3_bound(st, lhits)
+            extra = dict(pack_ms=round(k3_dense_ms, 4), pack_queued_ms=round(k3_dense_queued_ms, 4),
+                         pack_us_per_tile=round(k3_dense_queued_ms * 1e3 / dense_hits, 4),
+                         pack_us_per_tile_per_sm=round(
+                             k3_dense_queued_ms * 1e3 * sms / dense_hits, 4),
+                         pack_plain_ms=round(k3_dense_plain_ms, 3),
+                         pack_bound_ms=round(k3_dense_bound_ms, 5),
+                         pack_bound_share=round(k3_dense_bound_ms / k3_dense_queued_ms, 4))
         if name == "pad_bits":
             hi, hj = banded_adjacency(lib, lb, TOL_INT, backend="host")
             require(np.array_equal(ki, hi) and np.array_equal(kj, hj),
                     f"{name}: kernel {len(ki)} pairs vs host {len(hi)}")
         require(len(ki) > 0, f"{name}: no pairs")
-        phase(name, hashes=lib.shape[0], pairs=len(ki), hit_tiles=int(
-            (hc.band_counts(st, TOL_INT) > 0).sum()))
+        phase(name, hashes=lib.shape[0], pairs=len(ki), hit_tiles=lhits.shape[0],
+              pack_max_abs_err=lerr, **extra)
 
     # ---- references search: 10k refs x 1M candidates, public API, counted
     refs, ref_durs, cands, cand_durs, lo, hi, plants = refs_inputs(SEED)
@@ -713,6 +818,8 @@ def main() -> int:
     k2_refs_plain_ms = cuda_ms(lambda: hc.band_counts_plain(rst, TOL_INT), reps=3)
     k2_refs_bound_ms, _ = k2_bound(rst)
     k3_refs_ms = cuda_ms(lambda: hc.band_pack(rst, rhits, TOL_INT))
+    k3_refs_queued_ms = queued_ms(lambda: hc.band_pack(rst, rhits, TOL_INT),
+                                  lambda: hc.band_counts(state, TOL_INT))
     k3_refs_plain_ms = cuda_ms(lambda: hc.band_pack_plain(rst, rhits, TOL_INT))
     phase("refs_10k_x_1m", bound="exact", refs=N_REFS, candidates=N_LIBRARY,
           comparisons=refs_comps, groups=len(ref_groups), planted_found=len(got),
@@ -722,7 +829,9 @@ def main() -> int:
           counts_ms=round(k2_refs_ms, 3), counts_plain_ms=round(k2_refs_plain_ms, 3),
           counts_bound_ms=round(k2_refs_bound_ms, 4),
           counts_bound_share=round(k2_refs_bound_ms / k2_refs_ms, 4),
-          counts_max_abs_err=k2_refs_err, pack_ms=round(k3_refs_ms, 3), pack_plain_ms=round(k3_refs_plain_ms, 3),
+          counts_max_abs_err=k2_refs_err, pack_ms=round(k3_refs_ms, 4),
+          pack_queued_ms=round(k3_refs_queued_ms, 4),
+          pack_plain_ms=round(k3_refs_plain_ms, 3),
           launches=json.dumps(refs_launches))
 
     # ---- library_1m: the same searches over a growing device-resident library
@@ -890,10 +999,16 @@ def main() -> int:
         dict(name="band_pack_kernel", route="cuda", source=csrc + "hamming_band.cu",
              replaces="vid_dup_finder_lib_tpu/ops/hamming_pallas.py:130",
              launches=launches["band_pack"], max_abs_err=k3_err,
-             ms=k3_ms, plain_ms=k3_plain_ms, bound_ms=k3_bound_ms, bound_by=k3_bound_by,
-             library_ms=None,
+             ms=k3_queued_ms, call_ms=k3_ms, plain_ms=k3_plain_ms, bound_ms=k3_bound_ms,
+             bound_by=k3_bound_by, library_ms=None, bound_share=k3_bound_ms / k3_queued_ms,
+             hit_tiles=n_hits,
              refs_launches=refs_launches["band_pack"], refs_max_abs_err=k3_refs_err,
-             refs_ms=k3_refs_ms, refs_plain_ms=k3_refs_plain_ms,
+             refs_ms=k3_refs_queued_ms, refs_call_ms=k3_refs_ms, refs_plain_ms=k3_refs_plain_ms,
+             dense_ms=k3_dense_queued_ms, dense_call_ms=k3_dense_ms, dense_hit_tiles=dense_hits,
+             dense_bound_ms=k3_dense_bound_ms, dense_plain_ms=k3_dense_plain_ms,
+             full_ms=k3_full_ms, full_tiles=n_full, full_bound_ms=k3_full_bound_ms,
+             full_max_abs_err=k3_full_err, full_us_per_tile_per_sm=k3_full_us,
+             counts_us_per_tile_per_sm=k2_us,
              new_phase_launches={f"library_1m_{k}": v["band_pack"] for k, v in lib_launches.items()}),
         dict(name="band_sweep_kernel", route="cuda", source=csrc + "band_sweep.cu",
              replaces="vid_dup_finder_lib_tpu/ops/hamming_band.py:50",

@@ -174,3 +174,139 @@ def test_cli_update_cache_only_and_unique_output(vids, tmp_path):
         device="cpu",
     )
     assert rc == 0 and out.strip() == ""  # every fixture video is a duplicate
+
+
+# -- the duplicate resolver: TTY carousel and web app --------------------------
+
+
+def _group_files(root, spec):
+    """Files ``{dir: [names]}`` under ``root`` with distinct contents; one
+    list of paths per directory."""
+    out = []
+    for d, names in spec.items():
+        (root / d).mkdir(parents=True)
+        paths = []
+        for i, name in enumerate(names):
+            (root / d / name).write_bytes(b"x" + bytes([i]))
+            paths.append(str(root / d / name))
+        out.append(paths)
+    return out
+
+
+_TWO_GROUPS = {"a": ["v0.mp4", "v1.mp4", "v2.mp4"], "b": ["w0.mp4", "w1.mp4"]}
+
+
+def _tui(package, groups, script, **kw):
+    """Run one package's TTY resolver over path lists on scripted input;
+    (the resolver, what it printed)."""
+    import importlib
+
+    resolver = importlib.import_module(f"{package}.app.resolver_tui")
+    match_group = importlib.import_module(f"{package}.match_group")
+    out = io.StringIO()
+    tui = resolver.run_resolver(
+        [match_group.MatchGroup.new(g) for g in groups],
+        inp=io.StringIO(script), out=out, thumbs=False, **kw)
+    return tui, out.getvalue()
+
+
+PACKAGES = ("vid_dup_finder_lib_tpu", "vid_dup_finder_lib_tpu_torch")
+
+
+@pytest.mark.parametrize("script", ["", "n\nq\n"])
+def test_resolver_tui_without_groups(script):
+    from vid_dup_finder_lib_tpu.app.resolver_tui import ResolverTui as JaxTui
+    from vid_dup_finder_lib_tpu_torch.app.resolver_tui import ResolverTui
+
+    texts = []
+    for cls in (JaxTui, ResolverTui):
+        out = io.StringIO()
+        assert cls([], inp=io.StringIO(script), out=out).run() is None
+        texts.append(out.getvalue())
+    assert texts[1] == texts[0] == "no duplicate groups to resolve\n"
+
+
+def test_resolver_tui_navigation_wraps_around(tmp_path):
+    """Two groups: previous from the first lands on the last, next from the
+    last on the first, a jump past the end is refused; both packages print
+    the same on the same files."""
+    groups = _group_files(tmp_path, _TWO_GROUPS)
+    script = "p\nn\nn\n\ng2\ng9\nbanana\n7\nq\n"
+    (_, want), (tui, got) = (_tui(p, groups, script) for p in PACKAGES)
+    assert got == want
+    shown = [line.split()[2] for line in got.splitlines() if line.startswith("=== group")]
+    assert shown == ["1/2", "2/2", "1/2", "2/2", "1/2", "2/2", "2/2", "2/2", "2/2"]
+    assert "error: group 9 out of range" in got and got.count("error:") == 3
+    assert len(tui.thunks) == 2 and all(os.path.exists(p) for g in groups for p in g)
+
+
+def test_resolver_tui_resolves_like_the_jax_package(tmp_path):
+    """Keep, rename, untrash and quit, each package on its own copy of the
+    files: the same transcript and the same files left."""
+    script = "p\n0\nn\n1 as 2\nu0\nq\n"
+    texts, trees = [], []
+    for k, package in enumerate(PACKAGES):
+        root = tmp_path / f"run{k}"
+        groups = _group_files(root, _TWO_GROUPS)
+        _, text = _tui(package, groups, script, trash_dir=str(root / "trash"))
+        texts.append(text.replace(str(root), "ROOT"))
+        trees.append(sorted(
+            os.path.relpath(os.path.join(d, f), root) for d, _, fs in os.walk(root) for f in fs))
+    assert texts[1] == texts[0] and trees[1] == trees[0]
+    assert "[trashed]" in texts[1] and "untrashed" in texts[1]
+    assert "b/w0.mp4" in trees[1] and "b/w1.mp4" not in trees[1]  # 'p' wrapped to group 2
+
+
+def test_resolver_web_state_equals_the_jax_package(tmp_path):
+    import importlib
+
+    groups = _group_files(tmp_path, _TWO_GROUPS)
+    apps = []
+    for package in PACKAGES:
+        web = importlib.import_module(f"{package}.app.resolver_web")
+        thunk = importlib.import_module(f"{package}.app.resolution_thunk").ResolutionThunk
+        match_group = importlib.import_module(f"{package}.match_group").MatchGroup
+        apps.append(web.ResolverWebApp([thunk.from_matchgroup(match_group.new(g)) for g in groups]))
+        assert web.ResolverWebApp([]).state(3, False) == {
+            "group": 0, "n_groups": 0, "max_distance": None, "entries": [], "log": []}
+    theirs, ours = apps
+    for gi in (0, 1, 99, -5):
+        st = ours.state(gi, False)
+        assert st == theirs.state(gi, False)
+        assert st["group"] == max(0, min(gi, 1)) and st["n_groups"] == 2
+        assert [e["path"] for e in st["entries"]] == sorted(groups[st["group"]])
+    ok, actions = ours.resolve(0, "9")
+    assert not ok and ours.state(0, False)["log"] == [f"group 1: error: {actions[0]}"]
+
+
+def test_resolver_web_serves_state(tmp_path):
+    import urllib.request
+
+    from vid_dup_finder_lib_tpu_torch.app.resolver_web import start_resolver_web
+    from vid_dup_finder_lib_tpu_torch.match_group import MatchGroup
+
+    groups = _group_files(tmp_path, _TWO_GROUPS)
+    server, app = start_resolver_web([MatchGroup.new(g) for g in groups], port=0)
+    try:
+        url = f"http://127.0.0.1:{server.server_address[1]}/api/state?g=1"
+        with urllib.request.urlopen(url, timeout=10) as r:
+            assert r.status == 200 and json.loads(r.read()) == app.state(1, False)
+    finally:
+        server.shutdown()
+        server.server_close()
+
+
+def test_cli_gui_runs_the_resolver(vids, tmp_path, monkeypatch):
+    """``--gui-slint`` reaches the TTY resolver over the fixture groups with
+    input from stdin; the port prints what the JAX CLI prints."""
+    import sys
+
+    args = ["--gui-slint", "--gui-trash-path", str(tmp_path / "trash")]
+    monkeypatch.setattr(sys, "stdin", io.StringIO("n\nn\np\nq\n"))
+    rc, want = _run(jax_run_app, _json_args(DATA_DIR, tmp_path / "jax.json", *args))
+    assert rc == 0
+    monkeypatch.setattr(sys, "stdin", io.StringIO("n\nn\np\nq\n"))
+    rc, got = _run(run_app, _json_args(DATA_DIR, tmp_path / "port.json", *args), device="cpu")
+    assert rc == 0 and got == want
+    assert got.count("=== group") == 4 and "group 2/2" in got
+    assert not (tmp_path / "trash").exists() or not os.listdir(tmp_path / "trash")

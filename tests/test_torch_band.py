@@ -135,11 +135,11 @@ def test_search_band_matches_jax_and_other_backends(library, tolerance):
         assert {frozenset(g.contained_paths()) for g in ours} == planted
 
 
-# -- K4's epilogue: wgmma's D fragment -> K3's word layout ------------------
+# -- the word epilogue of K3 and K4: wgmma's D fragment -> K3's word layout --
 
 
 def _every_fourth(x: int, m: int) -> int:
-    """band_sweep.cu every_fourth: bits m, m + 4, ..., m + 28 -> bits 0..7."""
+    """word_epilogue.cuh every_fourth: bits m, m + 4, ..., m + 28 -> bits 0..7."""
     x = (x >> m) & 0x11111111
     x = (x | (x >> 3)) & 0x03030303
     x = (x | (x >> 6)) & 0x000F000F
@@ -148,11 +148,12 @@ def _every_fourth(x: int, m: int) -> int:
 
 def k4_epilogue_words(pred: np.ndarray) -> np.ndarray:
     """bool[128 rows, 128 columns] -> uint32[4, 128], the way
-    ``band_sweep_kernel`` builds a tile's words: warp q of warpgroup g holds
-    rows 64g + 16q + lane // 4 (+8 for fragment entries e >= 2), columns
-    8j + 2 (lane % 4) (+1 for odd e); four ballots per j; lane L keeps those
-    of j = L // 2 and writes the 16-bit halves of columns 8j + 2m + L % 2
-    into half q % 2 of word 2g + q // 2."""
+    ``store_tile_words`` (``csrc/word_epilogue.cuh``, called by
+    ``band_pack_kernel`` and ``band_sweep_kernel``) builds a tile's words:
+    warp q of warpgroup g holds rows 64g + 16q + lane // 4 (+8 for fragment
+    entries e >= 2), columns 8j + 2 (lane % 4) (+1 for odd e); four ballots
+    per j; lane L keeps those of j = L // 2 and writes the 16-bit halves of
+    columns 8j + 2m + L % 2 into half q % 2 of word 2g + q // 2."""
     words = np.zeros((4, 128), np.uint32)
     for g in range(2):
         for q in range(4):
@@ -174,11 +175,26 @@ def k4_epilogue_words(pred: np.ndarray) -> np.ndarray:
     return words
 
 
-@pytest.mark.parametrize("kind", ["random", "sparse", "all", "diagonal", "one_row", "one_column"])
+def _window_cut(rng) -> np.ndarray:
+    """A tile whose rows' windows cut it: a diagonal tile's ``c > r``, per-row
+    upper bounds inside the tile, rows with an empty window and pad rows
+    (bounds -1), over random products."""
+    r = np.arange(128)[:, None]
+    c = np.arange(128)[None, :]
+    hi = rng.integers(40, 160, 128)[:, None]
+    hi[5::17] = 0
+    hi[100:] = -1
+    return (rng.random((128, 128)) < 0.5) & (c > r) & (c < hi)
+
+
+@pytest.mark.parametrize("kind", ["random", "sparse", "all", "diagonal", "one_row", "one_column",
+                                  "none", "window_cut"])
 def test_k4_fragment_to_word_mapping(kind):
-    """The index arithmetic of K4's word epilogue, rehearsed in NumPy, gives
-    exactly ``pack_words`` of the same predicate tile (K3's layout: word
-    [w, c] holds rows 32w .. 32w + 31 of column c, bit b = row 32w + b)."""
+    """The index arithmetic of the word epilogue K3 and K4 share, rehearsed
+    in NumPy, gives exactly ``pack_words`` of the same predicate tile (K3's
+    layout: word [w, c] holds rows 32w .. 32w + 31 of column c, bit b = row
+    32w + b), also for a tile without a match (K3 writes its zero words) and
+    one that its rows' windows cut."""
     rng = np.random.default_rng(len(kind))
     pred = {
         "random": rng.random((128, 128)) < 0.5,
@@ -187,7 +203,30 @@ def test_k4_fragment_to_word_mapping(kind):
         "diagonal": np.eye(128, dtype=bool),
         "one_row": np.broadcast_to(np.arange(128)[:, None] == 77, (128, 128)),
         "one_column": np.broadcast_to(np.arange(128)[None, :] == 45, (128, 128)),
+        "none": np.zeros((128, 128), bool),
+        "window_cut": _window_cut(rng),
     }[kind]
     want = hc.pack_words(torch.from_numpy(np.ascontiguousarray(pred)).view(4, 32, 128))
     got = k4_epilogue_words(pred)
     np.testing.assert_array_equal(got.view(np.int32), want.numpy())
+    if kind == "none":
+        assert not got.any()
+    if kind == "window_cut":
+        assert got.any() and not (got[3] >> np.uint32(4)).any()  # rows 100.. are pad rows
+
+
+@pytest.mark.parametrize("name", ["random900", "dense300", "ragged130"])
+def test_epilogue_rehearsal_on_state_tiles(name):
+    """The rehearsed epilogue on real tiles: for every band tile of a
+    library, the predicate the kernels evaluate (``row_tile_adjacency_plain``)
+    through the fragment mapping equals ``band_pack_plain``'s words."""
+    state = hc.SearchState(*_library(name), CPU)
+    pm_rows, pm_cols = hc.pm1_pair(state)
+    for rt in range(state.n_row_tiles):
+        adj = hc.row_tile_adjacency_plain(state, pm_rows, pm_cols, rt, 350).numpy()
+        slots = np.arange(adj.shape[1])
+        hits = torch.from_numpy(
+            np.stack([np.full(len(slots), rt), state.first_ct[rt] + slots], 1).astype(np.int32))
+        want = hc.band_pack_plain(state, hits, 350).numpy()
+        for s in slots[:2].tolist() + slots[-1:].tolist():
+            np.testing.assert_array_equal(k4_epilogue_words(adj[:, s]).view(np.int32), want[s])

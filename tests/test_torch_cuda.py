@@ -459,3 +459,154 @@ def test_k4_state_after_a_later_append(dev):
     pi, pj = hc.banded_adjacency_plain(st, 350)
     np.testing.assert_array_equal(ki, pi)
     np.testing.assert_array_equal(kj, pj)
+
+
+# -- K3 on the tensor cores: words equal to the plain version's ---------------
+
+
+def _band_tiles(st):
+    """Every band tile of the state as a row-major hit list, int32[H, 2]."""
+    in_band = torch.arange(st.slots, device=st.device)[None, :] < st.n_ct_dev[:, None]
+    return hc.hit_tiles(st, in_band)
+
+
+def _k3_equal(st, hits, tol):
+    before = hc.band_pack.launches
+    got = hc.band_pack(st, hits, tol)
+    torch.cuda.synchronize()
+    assert hc.band_pack.launches == before + (hits.shape[0] > 0)
+    want = hc.band_pack_plain(st, hits, tol)
+    assert got.dtype == torch.int32 and got.shape == (hits.shape[0], 4, hc.TILE)
+    assert torch.equal(got, want)
+    return got
+
+
+@pytest.mark.parametrize("tol", [-1, 0, 1, 350, 511, 512, 1023, 1024, 1025, 5000])
+def test_k3_words_equal_plain_at_tolerance_edges(dev, tol):
+    """Every band tile (those without a match too) of a library with pairs
+    planted at ham == tol and tol + 1, nonzero pad bits and a partial last
+    row tile; the words hold exactly K2's counts."""
+    packed, bounds = _planted_at(1000, tol, seed=tol + 7)
+    st = hc.SearchState(packed, bounds, dev)
+    hits = _band_tiles(st)
+    assert hits.shape[0] == int(st.n_ct.sum()) > st.n_row_tiles
+    words = _k3_equal(st, hits, tol)
+    per_tile = np.bitwise_count(words.cpu().numpy().view(np.uint32)).reshape(len(hits), -1).sum(1)
+    counts = hc.band_counts_plain(st, tol).cpu().numpy()
+    rt, ct = hits.cpu().numpy().T
+    np.testing.assert_array_equal(per_tile, counts[rt, ct - st.first_ct[rt]])
+    if tol < 0:
+        assert not words.any()
+
+
+@pytest.mark.parametrize("n", [1, 2, 100, 127, 128, 129, 255, 256])
+@pytest.mark.parametrize("tol", [0, 350, 1024])
+def test_k3_small_and_single_tile(dev, n, tol):
+    st = hc.SearchState(*_planted_at(n, tol, seed=n), dev)
+    _k3_equal(st, _band_tiles(st), tol)
+
+
+@pytest.mark.parametrize("tol", [0, 350, 1023, 1024])
+@pytest.mark.parametrize("case", list(CASES))
+def test_k3_window_mode_equals_plain(dev, case, tol):
+    st = hc.RefsState(*CASES[case](), dev)
+    _k3_equal(st, _band_tiles(st), tol)
+
+
+@pytest.mark.parametrize("tol", [350, 1024])
+def test_k3_window_mode_planted_edges(dev, tol):
+    """References at ham == tol and tol + 1 inside their windows, a partial
+    last reference tile whose pad rows must give no bits."""
+    cands, _ = _planted_at(1500, tol, seed=3)
+    rng = np.random.default_rng(4)
+    idx = np.arange(0, 1500, 7)
+    refs = np.stack([_flip_exactly(cands[i], rng, min(tol + (k % 2), 1024))
+                     for k, i in enumerate(idx)])
+    st = hc.RefsState(refs, cands, np.maximum(idx - 200, 0), np.minimum(idx + 150, 1500), dev)
+    hits = _band_tiles(st)
+    words = _k3_equal(st, hits, tol)
+    assert np.bitwise_count(words.cpu().numpy().view(np.uint32)).sum() >= (len(idx) + 1) // 2
+    # rows past the last reference: their bits of the last tile's words
+    pad = st.n_rows % hc.TILE
+    last = words[hits[:, 0] == st.n_row_tiles - 1].cpu().numpy().view(np.uint32)
+    assert pad and not (last[:, pad // 32] >> np.uint32(pad % 32)).any()
+    assert not last[:, pad // 32 + 1 :].any()
+
+
+def _full_band_state(dev, n=5120):
+    """A library in which every pair is in the band (40 row tiles, the
+    first with 40 band tiles) and a third of the rows are near-copies."""
+    rng = np.random.default_rng(n)
+    packed = rng.integers(0, 2**32, (n, 32), dtype=np.uint64).astype(np.uint32)
+    packed[1::3] = packed[0:-1:3]
+    return hc.SearchState(packed, np.full(n, n), dev)
+
+
+@pytest.mark.parametrize("kind", ["none", "one", "scattered", "reversed", "one_row_tile",
+                                  "every_tile", "long_chunks"])
+def test_k3_hit_lists(dev, kind):
+    """Hit lists of every shape: empty; one tile; a few scattered tiles
+    (chunks of one); a list in reverse order; one row tile's 40 tiles (a
+    run longer than a chunk); every band tile (chunks that cross row
+    tiles); and that list six times over, long enough for chunks of 32."""
+    st = _full_band_state(dev)
+    tiles = _band_tiles(st)
+    assert tiles.shape[0] == 40 * 41 // 2
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    hits = {
+        "none": tiles[:0],
+        "one": tiles[77:78],
+        "scattered": tiles[::97],
+        "reversed": tiles.flip(0),
+        "one_row_tile": tiles[:40],
+        "every_tile": tiles,
+        "long_chunks": tiles.repeat(6, 1),
+    }[kind].clone()  # a slice may start off the 16-byte alignment the wrapper asks for
+    if kind == "long_chunks":
+        assert hc.pack_chunk(hits.shape[0], sms) == hc.PACK_CHUNK_MAX
+    words = _k3_equal(st, hits, 350)
+    if kind == "every_tile":
+        ii, jj = hc.decode_words(st, hits, words)
+        pi, pj = hc.banded_adjacency_plain(st, 350)
+        np.testing.assert_array_equal(ii.cpu().numpy(), pi)
+        np.testing.assert_array_equal(jj.cpu().numpy(), pj)
+        assert len(pi) >= 5120 // 3
+
+
+def test_k3_dense_clusters(dev):
+    """4,096 hashes in 128 clusters of 32 at shared durations: the hit list
+    of a library with many duplicates, and the pairs it decodes to."""
+    rng = np.random.default_rng(9)
+    seeds = rng.integers(0, 2**32, (128, 32), dtype=np.uint64).astype(np.uint32)
+    packed = np.stack([_flip_exactly(seeds[c], rng, 40) for c in range(128) for _ in range(32)])
+    durs = np.repeat(np.sort(rng.integers(30, 7200, 128)), 32)
+    bounds = np.searchsorted(durs, (durs * 1.1).astype(np.int64), side="right")
+    st = hc.SearchState(packed, bounds, dev)
+    hits = hc.hit_tiles(st, hc.band_counts(st, 350))
+    assert hits.shape[0] >= 32
+    words = _k3_equal(st, hits, 350)
+    ii, _ = hc.decode_words(st, hits, words)
+    assert ii.shape[0] >= 128 * 32 * 31 // 2
+
+
+def test_k3_state_after_a_later_append(dev):
+    """A zero-copy resident state whose pad rows a later ``append`` fills
+    with copies of its own rows: the window keeps them out of the words."""
+    packed, bounds = _planted_at(1000, 350, seed=11)
+    lib = IncrementalDeviceLibrary(dev, capacity=2048)
+    lib.append(packed)
+    n = lib.n
+    st = lib.state(np.arange(n), np.full(n, n))
+    hits = _band_tiles(st)
+    before = _k3_equal(st, hits, 350)
+    lib.append(packed[n - n % hc.TILE :])
+    assert st.packed.data_ptr() == lib.packed.data_ptr() and st.packed[n:].any()
+    assert torch.equal(_k3_equal(st, hits, 350), before)
+
+
+def test_k3_rejects_a_bad_hit_list(dev):
+    st = hc.SearchState(*_planted_at(300, 350, seed=1), dev)
+    with pytest.raises(ValueError):
+        hc.band_pack(st, _band_tiles(st).long(), 350)
+    with pytest.raises(ValueError):
+        hc.band_pack(st, _band_tiles(st).T.contiguous(), 350)

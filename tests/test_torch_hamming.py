@@ -174,3 +174,98 @@ def test_host_backend_is_the_jax_host_sweep():
     ti, tj = banded_adjacency(packed, bounds, 350, backend="host")
     np.testing.assert_array_equal(ti, hi)
     np.testing.assert_array_equal(tj, hj)
+
+
+# -- band_pack: any tile list, and how the kernel's blocks walk it ------------
+
+
+def _all_band_tiles(state):
+    in_band = torch.arange(state.slots)[None, :] < state.n_ct_dev[:, None]
+    return hc.hit_tiles(state, in_band)
+
+
+@pytest.mark.parametrize("mode", ["self", "window"])
+@pytest.mark.parametrize("name", ["random900", "dense300", "pad_bits", "ragged130"])
+def test_plain_pack_takes_any_tile_list(name, mode):
+    """``band_pack`` is asked for every band tile, not only those with a
+    match, in reverse order and with repeats: a tile without a match gets
+    zero words, every tile's words hold exactly its count of pairs, and a
+    tile's words do not depend on its place in the list."""
+    packed, bounds = _library(name)
+    if mode == "self":
+        state = hc.SearchState(packed, bounds, CPU)
+    else:
+        idx = np.arange(0, len(packed), 3)
+        state = hc.RefsState(packed[idx], packed, np.maximum(idx - 37, 0), bounds[idx], CPU)
+    counts = hc.band_counts_plain(state, 350)
+    tiles = _all_band_tiles(state)
+    assert tiles.shape[0] == int(state.n_ct.sum())
+    words = hc.band_pack(state, tiles, 350)
+    per_tile = np.bitwise_count(words.numpy().view(np.uint32)).reshape(len(tiles), -1).sum(1)
+    rt, ct = tiles.numpy().T
+    np.testing.assert_array_equal(per_tile, counts.numpy()[rt, ct - state.first_ct[rt]])
+    if name in ("random900", "pad_bits"):  # wide bands: some tiles hold no match
+        assert (per_tile == 0).any()
+    again = hc.band_pack(state, torch.cat([tiles.flip(0), tiles[:3]]), 350)
+    assert torch.equal(again[: len(tiles)].flip(0), words)
+    assert torch.equal(again[len(tiles) :], words[:3])
+    hits = hc.hit_tiles(state, counts)
+    keep = torch.from_numpy(per_tile > 0)
+    assert torch.equal(hits, tiles[keep])
+    assert torch.equal(hc.band_pack(state, hits, 350), words[keep])
+
+
+@pytest.mark.parametrize("n_hits", [0, 1, 131, 132, 133, 199, 512, 4092, 4093, 65_536, 10**9])
+@pytest.mark.parametrize("n_sms", [1, 132])
+def test_pack_chunk(n_hits, n_sms):
+    """Hits per block: the smallest chunk that gives at most one block per
+    multiprocessor, between 1 and ``PACK_CHUNK_MAX``."""
+    chunk = hc.pack_chunk(n_hits, n_sms)
+    fits = [c for c in range(1, hc.PACK_CHUNK_MAX + 1) if -(-n_hits // c) <= n_sms]
+    assert chunk == (fits[0] if fits else hc.PACK_CHUNK_MAX)
+
+
+def k3_walk(hits: np.ndarray, chunk: int) -> list[list[tuple[int, bool]]]:
+    """``band_pack_kernel``'s walk over a hit list, per block: (hit index,
+    whether the block expands the hit's row tile before its products)."""
+    blocks = []
+    for h0 in range(0, len(hits), chunk):
+        rt, block = -1, []
+        for h in range(h0, min(h0 + chunk, len(hits))):
+            block.append((h, int(hits[h, 0]) != rt))
+            rt = int(hits[h, 0])
+        blocks.append(block)
+    return blocks
+
+
+_WALK_LISTS = {
+    "empty": np.zeros((0, 2), np.int64),
+    "one": np.array([[3, 4]]),
+    "one_row_tile": np.stack([np.full(100, 7), 7 + np.arange(100)], 1),
+    "diagonal": np.stack([np.arange(50), np.arange(50)], 1),
+    "runs": np.stack([np.repeat(np.arange(9), [1, 40, 2, 33, 32, 1, 64, 3, 5]), np.arange(181)], 1),
+}
+
+
+@pytest.mark.parametrize("chunk", [1, 4, 32])
+@pytest.mark.parametrize("name", list(_WALK_LISTS))
+def test_k3_walk_against_brute_force_runs(name, chunk):
+    """Every hit is taken once and in order, by block ``h // chunk``; a row
+    tile is expanded exactly at the start of each run of equal row tiles
+    within a block (runs found here by brute force over all hit pairs), so
+    a run longer than the chunk is expanded once per block it spans."""
+    hits = _WALK_LISTS[name]
+    blocks = k3_walk(hits, chunk)
+    flat = [h for block in blocks for h, _ in block]
+    assert flat == list(range(len(hits)))
+    assert all(len(b) <= chunk and b for b in blocks)
+    assert len(blocks) == -(-len(hits) // chunk)
+    for b, block in enumerate(blocks):
+        for h, expands in block:
+            assert h // chunk == b
+            run = [g for g, _ in block if g <= h and all(
+                hits[k, 0] == hits[h, 0] for k in range(g, h + 1))]
+            assert expands == (run == [h])
+    expansions = sum(e for block in blocks for _, e in block)
+    starts = sum(1 for h in range(len(hits)) if h % chunk == 0 or hits[h, 0] != hits[h - 1, 0])
+    assert expansions == starts

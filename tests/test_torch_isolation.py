@@ -504,3 +504,186 @@ def test_duration_slice_edges_match_the_jax_package():
     assert s._duration_slice(10**6) == (len(durs), len(durs))
     assert tvdf.Search([], device="cpu")._duration_slice(100) == (0, 0)
     assert jvdf.Search([])._duration_slice(100) == (0, 0)
+
+
+# -- every import inside the port has a target, and the last host copies --------
+
+
+def _port_modules():
+    out = []
+    for root, _, files in os.walk(PORT):
+        out += [os.path.join(root, f) for f in files if f.endswith(".py")]
+    return sorted(out)
+
+
+def _missing_relative_targets(path, text):
+    """``(line, what)`` for each relative import in the source ``text`` of
+    ``path`` whose module has no file in the port, and each name imported
+    from a package that is neither a module file, a subpackage nor a name
+    bound in that package's ``__init__``."""
+    import ast
+
+    missing = []
+    here = os.path.dirname(path)
+    for node in ast.walk(ast.parse(text)):
+        if not isinstance(node, ast.ImportFrom) or node.level == 0:
+            continue
+        base = here
+        for _ in range(node.level - 1):
+            base = os.path.dirname(base)
+        target = os.path.join(base, *(node.module.split(".") if node.module else []))
+        if os.path.isfile(target + ".py"):
+            continue
+        init = os.path.join(target, "__init__.py")
+        if not os.path.isfile(init):
+            missing.append((node.lineno, "." * node.level + (node.module or "")))
+            continue
+        with open(init, encoding="utf-8") as fh:
+            bound = _bound_names(ast.parse(fh.read()))
+        for alias in node.names:
+            sub = os.path.join(target, alias.name)
+            if not (os.path.isfile(sub + ".py") or os.path.isdir(sub)
+                    or alias.name in bound or alias.name == "*"):
+                missing.append((node.lineno, f"{'.' * node.level}{node.module or ''}:{alias.name}"))
+    return sorted(missing)
+
+
+def _bound_names(tree):
+    import ast
+
+    names = set()
+    for node in ast.walk(tree):
+        if isinstance(node, (ast.Import, ast.ImportFrom)):
+            names |= {(a.asname or a.name).split(".")[0] for a in node.names}
+        elif isinstance(node, (ast.FunctionDef, ast.ClassDef)):
+            names.add(node.name)
+        elif isinstance(node, ast.Name) and isinstance(node.ctx, ast.Store):
+            names.add(node.id)
+    return names
+
+
+def test_every_relative_import_in_the_port_has_a_target():
+    """Also those inside functions, which importing the module never runs
+    (the resolver's ``from ..utils.modulo import`` was one)."""
+    modules = _port_modules()
+    assert len(modules) > 40
+    for path in modules:
+        with open(path, encoding="utf-8") as fh:
+            assert _missing_relative_targets(path, fh.read()) == [], path
+    # the check does catch a module, and a name of a package, that is not there
+    probe = os.path.join(PORT, "app", "resolver_tui.py")
+    text = ("def f():\n    from ..utils.nowhere import x\n"
+            "from ..utils import modulo, nothing_here\nfrom . import resolver_web\n"
+            "from .. import VideoHash, ops\n")
+    assert _missing_relative_targets(probe, text) == [
+        (2, "..utils.nowhere"), (3, "..utils:nothing_here")]
+
+
+def test_every_jax_package_host_module_has_a_counterpart():
+    """The JAX package's modules that import neither jax nor its Pallas or
+    mesh code each have a file of the same name in the port, apart from
+    those the port replaces under another design."""
+    jax_root = os.path.join(REPO, "vid_dup_finder_lib_tpu")
+    replaced = {
+        "native.py",  # the CPU fast path, still to be ported
+        "utils/jaxconfig.py", "__main__.py",
+    }
+    device_code = re.compile(r"^\s*(import|from)\s+(jax|\.+(parallel|native|ops\.hamming_pallas"
+                             r"|ops\.hash_pallas|utils\.jaxconfig))\b", re.M)
+    absent = []
+    for root, _, files in os.walk(jax_root):
+        for f in files:
+            rel = os.path.relpath(os.path.join(root, f), jax_root)
+            if not f.endswith(".py") or rel in replaced or rel.startswith("parallel"):
+                continue
+            with open(os.path.join(root, f), encoding="utf-8") as fh:
+                if device_code.search(fh.read()):
+                    continue
+            if not os.path.isfile(os.path.join(PORT, rel)):
+                absent.append(rel)
+    assert absent == []
+
+
+def _same_source_after_the_docstring(rel):
+    """The port's copy of a host module is the original's code, line for
+    line, under a docstring of its own that names the counterpart."""
+    import ast
+
+    bodies = []
+    for package in ("vid_dup_finder_lib_tpu", "vid_dup_finder_lib_tpu_torch"):
+        with open(os.path.join(REPO, package, rel), encoding="utf-8") as fh:
+            tree = ast.parse(fh.read())
+        assert ast.get_docstring(tree)
+        bodies.append(ast.dump(ast.Module(body=tree.body[1:], type_ignores=[])))
+    with open(os.path.join(PORT, rel), encoding="utf-8") as fh:
+        assert f"vid_dup_finder_lib_tpu/{rel}" in ast.get_docstring(ast.parse(fh.read()))
+    return bodies[0] == bodies[1]
+
+
+@pytest.mark.parametrize("rel", ["utils/modulo.py", "ops/compositing.py", "debug_util.py"])
+def test_last_host_copies_keep_the_original_code(rel):
+    assert _same_source_after_the_docstring(rel)
+
+
+def test_modulo_matches_the_jax_package():
+    from vid_dup_finder_lib_tpu.utils import modulo as theirs
+    from vid_dup_finder_lib_tpu_torch.utils import modulo as ours
+
+    for m in (1, 2, 3, 7):
+        for v in range(-15, 16):
+            assert ours.modulo(v, m) == theirs.modulo(v, m) == v % m
+            for d in (0, 1, 5, 22):
+                assert ours.wrapping_add(v, d, m) == theirs.wrapping_add(v, d, m)
+                assert ours.wrapping_sub(v, d, m) == theirs.wrapping_sub(v, d, m)
+    assert ours.wrapping_sub(0, 1, 3) == 2 and ours.wrapping_add(2, 1, 3) == 0
+    with pytest.raises(AssertionError):
+        ours.modulo(1, 0)
+
+
+@pytest.mark.parametrize("pad", [0, 3])
+def test_compositing_matches_the_jax_package(pad):
+    from vid_dup_finder_lib_tpu.ops import compositing as theirs
+    from vid_dup_finder_lib_tpu_torch.ops import compositing as ours
+
+    rng = np.random.default_rng(6 + pad)
+    shapes = [(5, 7), (9, 4), (1, 1), (6, 6)]
+    images = [rng.integers(0, 256, (h, w, 3), dtype=np.uint8) for h, w in shapes]
+    for name in ("row_images", "stack_images"):
+        got = getattr(ours, name)(images, pad)
+        np.testing.assert_array_equal(got, getattr(theirs, name)(images, pad))
+        assert got.dtype == np.uint8
+    assert ours.row_images(images, pad).shape == (9, 18 + 3 * pad, 3)
+    assert ours.stack_images(images, pad).shape == (21 + 3 * pad, 7, 3)
+    rows = [images[:2], images[2:]]
+    np.testing.assert_array_equal(
+        ours.grid_images_rgb(rows, pad), theirs.grid_images_rgb(rows, pad))
+    with pytest.raises(AssertionError):
+        ours.row_images([])
+
+
+def test_debug_util_matches_the_jax_package(tmp_path):
+    """``dump_hash_frames`` of a fixture video and ``hash_bit_image`` of a
+    seeded hash: the same summary and byte-equal image files."""
+    import vid_dup_finder_lib_tpu as jvdf
+    from tests.fixtures import make_fixture_videos
+    from vid_dup_finder_lib_tpu import debug_util as theirs
+    from vid_dup_finder_lib_tpu_torch import debug_util as ours
+
+    video = make_fixture_videos(os.path.join(REPO, "tests", "data"))[0]
+    want = theirs.dump_hash_frames(
+        video, str(tmp_path / "jax"),
+        jvdf.CreationOptions(cropdetect=jvdf.Cropdetect.LETTERBOX))
+    got = ours.dump_hash_frames(
+        video, str(tmp_path / "port"),
+        tvdf.CreationOptions(cropdetect=tvdf.Cropdetect.LETTERBOX))
+    names = [os.path.basename(p) for p in got.pop("files")]
+    assert names == [os.path.basename(p) for p in want.pop("files")] and len(names) == 48
+    assert got == want and got["num_frames"] == 16
+    for name in names:
+        assert (tmp_path / "port" / name).read_bytes() == (tmp_path / "jax" / name).read_bytes()
+
+    words = np.random.default_rng(8).integers(0, 2**32, 32, dtype=np.uint64).astype(np.uint32)
+    words[-1] &= np.uint32(0xFF)
+    theirs.hash_bit_image(jvdf.VideoHash.from_packed_u32(words), str(tmp_path / "jax.png"))
+    ours.hash_bit_image(tvdf.VideoHash.from_packed_u32(words), str(tmp_path / "port.png"))
+    assert (tmp_path / "port.png").read_bytes() == (tmp_path / "jax.png").read_bytes()

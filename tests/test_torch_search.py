@@ -178,3 +178,49 @@ def test_public_surface_matches_jax_package():
     g = tvdf.MatchGroup.new_with_reference("r", ["a", "b"])
     assert g.to_json() == jvdf.MatchGroup.new_with_reference("r", ["a", "b"]).to_json()
     assert g.dup_combinations() == [tvdf.MatchGroup("r", ("a",)), tvdf.MatchGroup("r", ("b",))]
+
+
+# -- VDF_SEARCH_BACKEND: the backend of search(backend="auto") ----------------
+
+
+@pytest.mark.parametrize("named", ["device", "band", "host", "naive", "auto"])
+def test_env_names_the_backend_of_auto(monkeypatch, named):
+    """``search(backend="auto")`` runs the backend that VDF_SEARCH_BACKEND
+    names; an explicit backend is not overridden."""
+    hashes, planted, _ = _planted_library(300, 6, seed=17)
+    seen = []
+    real = Search.search_self
+
+    def spy(self, tolerance, backend="auto"):
+        seen.append(backend)
+        return real(self, tolerance, backend=backend)
+
+    monkeypatch.setattr(Search, "search_self", spy)
+    monkeypatch.setenv("VDF_SEARCH_BACKEND", named)
+    groups = tvdf.search(hashes, 0.35, device="cpu")
+    assert seen == [named]
+    assert {frozenset(g.contained_paths()) for g in groups} == planted
+    assert tvdf.search(hashes, 0.35, backend="host", device="cpu") == groups
+    assert seen == [named, "host"]
+    monkeypatch.delenv("VDF_SEARCH_BACKEND")
+    assert tvdf.search(hashes, 0.35, device="cpu") == groups
+    assert seen[-1] == "auto"
+
+
+@pytest.mark.parametrize("named", ["pallas", "native", "ring", "", "Device"])
+def test_env_naming_a_backend_the_port_lacks_raises(monkeypatch, named):
+    hashes, _, _ = _planted_library(40, 2, seed=18)
+    monkeypatch.setenv("VDF_SEARCH_BACKEND", named)
+    with pytest.raises(ValueError, match="VDF_SEARCH_BACKEND"):
+        tvdf.search(hashes, 0.35, device="cpu")
+    # only backend="auto" reads the variable
+    assert tvdf.search(hashes, 0.35, backend="host", device="cpu")
+
+
+def test_env_host_gives_the_jax_packages_groups(monkeypatch):
+    hashes, planted, _ = _planted_library(400, 8, seed=19)
+    monkeypatch.setenv("VDF_SEARCH_BACKEND", "host")
+    ours = tvdf.search(hashes, 0.35, device="cpu")
+    theirs = jvdf.search(jax_hashes(hashes), 0.35)
+    assert same_groups(ours, theirs)
+    assert {frozenset(g.contained_paths()) for g in ours} == planted

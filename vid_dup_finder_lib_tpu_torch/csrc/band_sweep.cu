@@ -26,15 +26,8 @@
 // Only the epilogue is new.  The block owns the whole 128 x 128 tile, so
 // its count goes straight to counts[r, t] (a warp reduction, eight warp
 // sums in shared memory, no atomics).  A tile with hits then rebuilds its
-// words from the D fragment: warp q of warpgroup g holds rows 64g + 16q +
-// lane / 4 (+8), columns 8j + 2 (lane % 4) (+1), so word 2g + q / 2 takes
-// its bits 16 (q % 2) .. 16 (q % 2) + 15 from that warp.  For each j, four
-// ballots over the predicates of d[4j + e] give 8 rows x 4 columns each,
-// interleaved by lane % 4; lane L keeps the four ballots of j = L / 2 and
-// gathers every fourth bit into the 16-bit halves of its four columns
-// 8j + 2m + L % 2, stored into a 2 KB shared tile in the output layout
-// (one writer per half, no atomics).  The block then writes the tile's
-// 2 KB with coalesced 8-byte stores.
+// words from the D fragment and writes its 2 KB (store_tile_words,
+// word_epilogue.cuh, shared with band_pack_kernel).
 //
 // Why runs of SEG tiles rather than one block per whole band: at 1M hashes
 // a range that fits the word budget holds a few hundred row tiles, too few
@@ -45,23 +38,14 @@
 #include <cuda_runtime.h>
 
 #include "pm1_wgmma.cuh"
+#include "word_epilogue.cuh"
 
 namespace {
 
 using namespace vdf;
 
 constexpr int WARPS = THREADS / 32;
-constexpr int WORD_ROWS = TILE / 32;                 // words per column of a tile
-constexpr int WTILE_BYTES = WORD_ROWS * TILE * 4;    // one tile's words, 2 KB
 constexpr int SMEM = RING_BYTES + TILE * 8 + WTILE_BYTES + WARPS * 4 + ALIGN_SLACK;
-
-// Bits m, m + 4, ..., m + 28 of x -> bits 0 .. 7.
-__device__ __forceinline__ uint32_t every_fourth(uint32_t x, int m) {
-  x = (x >> m) & 0x11111111u;
-  x = (x | (x >> 3)) & 0x03030303u;
-  x = (x | (x >> 6)) & 0x000F000Fu;
-  return (x | (x >> 12)) & 0xFFu;
-}
 
 __global__ void __launch_bounds__(THREADS, 1)
 band_sweep_kernel(const int32_t* __restrict__ packed,    // [n_pad, 32]
@@ -115,13 +99,6 @@ band_sweep_kernel(const int32_t* __restrict__ packed,    // [n_pad, 32]
   const int cq = 2 * (lane & 3);
   const uint64_t da = smem_desc(a_s + wg * 64 * SLAB);
   const uint64_t db = smem_desc(b_s);
-  // the epilogue's words: this warp's 16-bit half of word wd, and the
-  // columns 8 jl + 2m + e1 (m = 0 .. 3) whose halves this lane builds
-  const int wd = 2 * wg + ((warp & 3) >> 1);
-  const int hh = warp & 1;
-  const int jl = lane >> 1;
-  const int e1 = lane & 1;
-  uint16_t* halves = reinterpret_cast<uint16_t*>(wtile);
 
   int d[64];
 #pragma unroll
@@ -141,27 +118,8 @@ band_sweep_kernel(const int32_t* __restrict__ packed,    // [n_pad, 32]
     for (int w = 0; w < WARPS; ++w) total += wsum[w];
     if (tid == 0) cnt_out[t] = total;
     if (total) {  // uniform over the block
-      uint32_t kb[4] = {0u, 0u, 0u, 0u};
-#pragma unroll
-      for (int j = 0; j < 16; ++j) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const uint32_t bal =
-              __ballot_sync(0xffffffffu, pair_hit(d, 4 * j + e, c0, cq, w0, w1, thresh));
-          if (j == jl) kb[e] = bal;
-        }
-      }
-      const uint32_t top = e1 ? kb[1] : kb[0];  // rows 0 .. 7 of the warp's 16
-      const uint32_t bot = e1 ? kb[3] : kb[2];  // rows 8 .. 15
-#pragma unroll
-      for (int m = 0; m < 4; ++m) {
-        const int c = 8 * jl + 2 * m + e1;
-        halves[(wd * TILE + c) * 2 + hh] =
-            static_cast<uint16_t>(every_fourth(top, m) | (every_fourth(bot, m) << 8));
-      }
-      __syncthreads();
-      uint2* dst = reinterpret_cast<uint2*>(words + (tile_off[r] + t) * (WORD_ROWS * TILE));
-      dst[tid] = reinterpret_cast<const uint2*>(wtile)[tid];
+      store_tile_words(d, c0, cq, w0, w1, thresh, wtile,
+                       words + (tile_off[r] + t) * (WORD_ROWS * TILE));
     }
     // wsum and wtile are written again only after the next tile's
     // products, whose barriers every thread passes first
@@ -169,8 +127,6 @@ band_sweep_kernel(const int32_t* __restrict__ packed,    // [n_pad, 32]
     for (int k = 0; k < SLABS; ++k) cur[k] = nxt[k];
   }
 }
-
-static_assert(WTILE_BYTES == THREADS * 8, "one 8-byte store per thread writes a tile's words");
 
 }  // namespace
 

@@ -51,12 +51,28 @@
 // block writes its own entries and nothing is carried between blocks.
 // The grid covers the whole [row tiles, runs of SEG slots] rectangle;
 // a block past its row tile's band exits at once.
+//
+// band_pack_kernel on an H100.  Its work is the same dot product for the
+// 128 x 128 pairs of each hit tile, and 2 KB of words per tile; the
+// tensor cores bound it too (0.017 us per tile).  It runs the same
+// mainloop.  The hit list is row-major, so on a library with many
+// duplicates consecutive hits share their row tile: the list is cut into
+// chunks of consecutive hits, one block each, and a block expands a row
+// tile only when it differs from the previous hit's, with the next hit's
+// column tile one ahead in registers.  The wrapper makes a chunk
+// ceil(H / SMs) hits, at most 32: scattered hits spread over all SMs, many
+// hits give long runs.  The words come from wgmma's D fragment through
+// store_tile_words (word_epilogue.cuh, shared with band_sweep_kernel), for
+// every tile of the list, also one that turns out to hold no match.  On an
+// NVIDIA H100 80GB HBM3 at 700 W a list of 65,808 band tiles of the 1M
+// library takes 2.3-2.4 ms, 4.6-4.9 us per tile per SM beside
+// band_counts_kernel's 4.2 (chip_smoke.py, tools/k3_times.py).
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
-#include "hamming_tile.cuh"
 #include "pm1_wgmma.cuh"
+#include "word_epilogue.cuh"
 
 namespace {
 
@@ -64,7 +80,7 @@ using namespace vdf;
 
 // -- band_counts_kernel: int8 +/-1 on the tensor cores (pm1_wgmma.cuh) -----
 
-constexpr int SMEM = RING_BYTES + TILE * 8 + ALIGN_SLACK;  // slabs, win[], alignment
+constexpr int COUNTS_SMEM = RING_BYTES + TILE * 8 + ALIGN_SLACK;  // slabs, win[], alignment
 
 __global__ void __launch_bounds__(THREADS, 1)
 band_counts_kernel(const int32_t* __restrict__ rows_m,    // [row tiles * TILE, 32]
@@ -129,48 +145,75 @@ band_counts_kernel(const int32_t* __restrict__ rows_m,    // [row tiles * TILE, 
   }
 }
 
-// -- band_pack_kernel ------------------------------------------------------
+// -- band_pack_kernel: the same products, then the word epilogue -----------
 
-// One block per hit tile.  Thread t owns row rt*TILE + t (its 32 words in
-// registers); warp w's 32 lanes are rows w*32 .. w*32+31, so a ballot over
-// the predicate of one column is word [w, c] of the transposed layout:
-// bit b = row w*32 + b.  Lane (c % 32) keeps the word of column c and the
-// warp stores 32 columns at a time, coalesced.
-__global__ void __launch_bounds__(TILE)
+constexpr int PACK_SMEM = RING_BYTES + TILE * 8 + WTILE_BYTES + ALIGN_SLACK;
+
+// Block b owns hits [b * chunk, min((b + 1) * chunk, n_hits)).
+__global__ void __launch_bounds__(THREADS, 1)
 band_pack_kernel(const int32_t* __restrict__ rows_m,  // [row tiles * TILE, 32]
                  const int32_t* __restrict__ cols_m,  // [col tiles * TILE, 32]
-                 const int32_t* __restrict__ bounds,  // [rows]
+                 const int32_t* __restrict__ bounds,  // [rows], -1 on pad rows
                  const int32_t* __restrict__ row_lo,  // [rows] or null (c > r)
                  const int32_t* __restrict__ hits,    // [H, 2]: row tile, col tile
                  int32_t* __restrict__ words,         // [H, TILE / 32, TILE]
-                 int n, int tol) {
-  const int64_t h = blockIdx.x;
+                 int64_t n_hits, int chunk, int n, int thresh) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* a_s = aligned_slabs(smem_raw);                           // [SLABS][TILE][SLAB]
+  uint8_t* b_s = a_s + SLABS * SLAB_BYTES;                          // [2][TILE][SLAB]
+  int2* win = reinterpret_cast<int2*>(b_s + 2 * SLAB_BYTES);        // per row: (lo, hi)
+  uint32_t* wtile = reinterpret_cast<uint32_t*>(win + TILE);        // [WORD_ROWS][TILE]
+
+  const int64_t h0 = static_cast<int64_t>(blockIdx.x) * chunk;
+  const int64_t h1 = min(h0 + chunk, n_hits);
   const int tid = threadIdx.x;
   const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int r = hits[2 * h] * TILE + tid;
-  const int c0 = hits[2 * h + 1] * TILE;
+  const int wg = tid >> 7;
+  const int er = tid >> 1;  // expansion: this thread's row / column of a tile
+  const int eh = tid & 1;   // ... and its half of each 16-byte slab row
+  const uint2* cbase = reinterpret_cast<const uint2*>(cols_m) + er * (WORDS / 2) + eh;
+  uint2 cur[SLABS], nxt[SLABS];
+  load_tile(cur, cbase + hits[2 * h0 + 1] * TILE_U2);
+  expand(b_s, er, eh, cur[0]);  // made visible by the first row tile's fence and barrier
 
-  __shared__ uint4 cols[TILE][VEC];  // 16 KB: the column tile
-  const uint4* csrc = reinterpret_cast<const uint4*>(cols_m + static_cast<int64_t>(c0) * WORDS);
-  for (int i = tid; i < TILE * VEC; i += TILE) cols[i / VEC][i % VEC] = csrc[i];
+  // this thread's accumulator rows and columns (the D fragment)
+  const int qr = wg * 64 + ((tid >> 5) & 3) * 16 + (lane >> 2);
+  const int cq = 2 * (lane & 3);
+  const uint64_t da = smem_desc(a_s + wg * 64 * SLAB);
+  const uint64_t db = smem_desc(b_s);
+  int2 w0 = make_int2(0, 0), w1 = w0;
+  int rt = -1;  // the row tile expanded in a_s
 
-  uint4 row[VEC];
-  const uint4* rsrc = reinterpret_cast<const uint4*>(rows_m + static_cast<int64_t>(r) * WORDS);
+  int d[64];
 #pragma unroll
-  for (int q = 0; q < VEC; ++q) row[q] = rsrc[q];
-  const int lo = row_lo ? row_lo[r] : r;
-  const int lim = min(bounds[r], n);
-  __syncthreads();
+  for (int i = 0; i < 64; ++i) d[i] = 0;
 
-  int32_t* out = words + (h * (TILE / 32) + warp) * TILE;
-  unsigned mine = 0;
-  for (int c = 0; c < TILE; ++c) {
-    const int col = c0 + c;
-    const bool hit = (hamming(row, cols[c]) <= tol) & (col > lo) & (col < lim);
-    const unsigned word = __ballot_sync(0xffffffffu, hit);
-    if ((c & 31) == lane) mine = word;
-    if ((c & 31) == 31) out[c - 31 + lane] = static_cast<int32_t>(mine);
+  for (int64_t h = h0; h < h1; ++h) {
+    const int hrt = hits[2 * h];
+    const int ct = hits[2 * h + 1];
+    const bool more = h + 1 < h1;
+    if (more) load_tile(nxt, cbase + hits[2 * h + 3] * TILE_U2);
+    if (hrt != rt) {  // uniform over the block
+      // every warpgroup's products of the previous tile are complete and
+      // every thread has read its windows: store_tile_words' barrier
+      rt = hrt;
+      const int64_t r0 = static_cast<int64_t>(rt) * TILE;
+      if (tid < TILE) {
+        win[tid] = make_int2(row_lo ? row_lo[r0 + tid] : static_cast<int>(r0) + tid,
+                             min(bounds[r0 + tid], n));
+      }
+      expand_row_tile(a_s, rows_m, r0, er, eh);
+      fence_async_smem();
+      __syncthreads();
+      w0 = win[qr];
+      w1 = win[qr + 8];
+    }
+    tile_products(d, da, db, b_s, er, eh, cur, nxt, more);
+    // wtile is written again only after the next tile's products, whose
+    // barriers every thread passes first
+    store_tile_words(d, ct * TILE, cq, w0, w1, thresh, wtile, words + h * (WORD_ROWS * TILE));
+#pragma unroll
+    for (int k = 0; k < SLABS; ++k) cur[k] = nxt[k];
   }
 }
 
@@ -188,10 +231,10 @@ extern "C" int vdf_band_counts(const void* rows, const void* cols,
   if (blocks >= (int64_t{1} << 31)) return static_cast<int>(cudaErrorInvalidConfiguration);
   if (blocks == 0) return static_cast<int>(cudaGetLastError());
   const cudaError_t attr = cudaFuncSetAttribute(
-      band_counts_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
+      band_counts_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, COUNTS_SMEM);
   if (attr != cudaSuccess) return static_cast<int>(attr);
   // ham <= tol  <=>  dot >= 1024 - 2 tol
-  band_counts_kernel<<<static_cast<unsigned>(blocks), THREADS, SMEM,
+  band_counts_kernel<<<static_cast<unsigned>(blocks), THREADS, COUNTS_SMEM,
                        static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int32_t*>(rows), static_cast<const int32_t*>(cols),
       static_cast<const int32_t*>(bounds), static_cast<const int32_t*>(row_lo),
@@ -200,16 +243,25 @@ extern "C" int vdf_band_counts(const void* rows, const void* cols,
   return static_cast<int>(cudaGetLastError());
 }
 
+// Every tile of hits gets its 2 KB of words; block b takes hits
+// [b * chunk, (b + 1) * chunk) (ops/hamming_cuda.py pack_chunk).  tol comes
+// in clamped like vdf_band_counts'.
 extern "C" int vdf_band_pack(const void* rows, const void* cols,
                              const void* bounds, const void* row_lo,
                              const void* hits, void* words, int64_t n_hits,
-                             int32_t n, int32_t tol, void* stream) {
-  if (n_hits > 0) {
-    band_pack_kernel<<<static_cast<unsigned>(n_hits), TILE, 0,
-                       static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const int32_t*>(rows), static_cast<const int32_t*>(cols),
-        static_cast<const int32_t*>(bounds), static_cast<const int32_t*>(row_lo),
-        static_cast<const int32_t*>(hits), static_cast<int32_t*>(words), n, tol);
-  }
+                             int32_t chunk, int32_t n, int32_t tol, void* stream) {
+  if (n_hits <= 0) return static_cast<int>(cudaGetLastError());
+  if (chunk < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const int64_t blocks = (n_hits + chunk - 1) / chunk;
+  if (blocks >= (int64_t{1} << 31)) return static_cast<int>(cudaErrorInvalidConfiguration);
+  const cudaError_t attr = cudaFuncSetAttribute(
+      band_pack_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, PACK_SMEM);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  band_pack_kernel<<<static_cast<unsigned>(blocks), THREADS, PACK_SMEM,
+                     static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int32_t*>(rows), static_cast<const int32_t*>(cols),
+      static_cast<const int32_t*>(bounds), static_cast<const int32_t*>(row_lo),
+      static_cast<const int32_t*>(hits), static_cast<int32_t*>(words), n_hits, chunk, n,
+      1024 - 2 * tol);
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,5 +1,6 @@
-// The int8 +/-1 tensor-core mainloop shared by band_counts_kernel
-// (hamming_band.cu) and band_sweep_kernel (band_sweep.cu).
+// The int8 +/-1 tensor-core mainloop shared by band_counts_kernel and
+// band_pack_kernel (hamming_band.cu) and band_sweep_kernel (band_sweep.cu),
+// and the tile geometry of all three.
 //
 // Each packed bit expands in shared memory to an int8 +/-1 (bit 1 -> +1,
 // bit 0 -> -1), so dot(r, c) = 1024 - 2 * ham(r, c) exactly in int32 and
@@ -21,10 +22,10 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
-#include "hamming_tile.cuh"
-
 namespace vdf {
 
+constexpr int TILE = 128;  // rows per row tile == columns per column tile
+constexpr int WORDS = 32;  // 1024 storage bits as 32 x 32-bit words
 constexpr int SEG = 32;                   // column tiles per block
 constexpr int THREADS = 256;              // two warpgroups, 64 rows each
 constexpr int SLAB = 128;                 // bytes of K per row of a slab (one swizzle atom row)

@@ -27,7 +27,7 @@ slots").  The sweep has two phases, as on the TPU:
 
 Nonzero words are then decoded to ``(i, j)`` on the device with torch
 ops.  A tensor on a CUDA device goes through the kernels of
-``csrc/hamming_band.cu``; one on the CPU through the plain versions
+``csrc/hamming_band.cu`` (both on the int8 tensor cores); one on the CPU through the plain versions
 (:func:`band_counts_plain`, :func:`band_pack_plain`), which unpack the
 bits to +/-1 and take ``dot = 1024 - 2 * ham`` from a float matmul (exact:
 every partial sum is an integer of magnitude <= 1024).
@@ -45,6 +45,7 @@ from ..utils.device import resolve_device
 TILE = 128  # rows per row tile == columns per column tile (csrc TILE)
 WORDS_PER_COL = TILE // 32  # packed words per column of a tile
 ROW_LO_SENTINEL = 2**30  # row_lo of a pad row: no column lies above it
+PACK_CHUNK_MAX = 32  # most hit tiles one block of band_pack_kernel walks
 
 
 def launch_metadata(
@@ -491,9 +492,21 @@ def band_counts(state: SweepState, tol: int) -> torch.Tensor:
     return counts
 
 
+def pack_chunk(n_hits: int, n_sms: int) -> int:
+    """Hit tiles per block of ``band_pack_kernel``: the list is cut into
+    chunks of consecutive hits, one block each.  A block expands a row
+    tile once for a run of hits that share it, so long chunks serve a
+    row-major list with many hits per row tile, while few hits must still
+    spread over all ``n_sms`` multiprocessors: ``ceil(H / n_sms)``, at
+    least 1 and at most ``PACK_CHUNK_MAX``."""
+    return max(1, min(PACK_CHUNK_MAX, -(-int(n_hits) // max(1, int(n_sms)))))
+
+
 def band_pack(state: SweepState, hits: torch.Tensor, tol: int) -> torch.Tensor:
     """Phase B: transposed bitpacked adjacency of the hit tiles
     (``hits``: int32[H, 2] of row tile, column tile) -> int32[H, 4, 128].
+    Any tile of the state may be listed, in any order; one without a match
+    gets zero words.
 
     CUDA state -> ``band_pack_kernel``; CPU state -> :func:`band_pack_plain`."""
     if state.device.type == "cpu":
@@ -514,7 +527,12 @@ def band_pack(state: SweepState, hits: torch.Tensor, tol: int) -> torch.Tensor:
         _row_lo_ptr(state),
         cuda_build.ptr(hits, "hits"),
         cuda_build.ptr(words, "words"),
-        hits.shape[0], state.n, _clamp_tol(tol),
+        hits.shape[0],
+        pack_chunk(
+            hits.shape[0],
+            torch.cuda.get_device_properties(state.device).multi_processor_count,
+        ),
+        state.n, _clamp_tol(tol),
         cuda_build.current_stream(state.device),
     )
     cuda_build.check(err, "band_pack_kernel")

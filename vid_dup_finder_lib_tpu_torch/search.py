@@ -477,9 +477,20 @@ def search(
     ``device_library`` + ``library_paths``: a library on ``device`` whose
     rows are the packed hashes of ``hashes`` appended in ``library_paths``
     order, or in this search's (duration, src_path) order when
-    ``library_paths`` is None (:meth:`Search.attach_device_library`)."""
+    ``library_paths`` is None (:meth:`Search.attach_device_library`).
+
+    With ``backend="auto"`` the environment variable ``VDF_SEARCH_BACKEND``,
+    when set, names the backend (one of ``BACKENDS``), as in the JAX
+    package; a backend the port does not have raises ``ValueError``."""
     if backend not in BACKENDS:
         raise ValueError(f"unknown backend {backend!r}; expected one of {BACKENDS}")
+    if backend == "auto":
+        backend = os.environ.get("VDF_SEARCH_BACKEND", "auto")
+        if backend not in BACKENDS:
+            raise ValueError(
+                f"VDF_SEARCH_BACKEND={backend!r} names no backend of this"
+                f" package; expected one of {BACKENDS}"
+            )
     if tolerance is None:
         tolerance = DEFAULT_SEARCH_TOLERANCE
     s = Search(hashes, device=device)

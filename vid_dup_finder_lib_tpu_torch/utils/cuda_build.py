@@ -45,8 +45,8 @@ _SIGNATURES = {
     # counts (zeroed), row_tiles, slots, n, tol, stream
     "vdf_band_counts": (_P, _P, _P, _P, _P, _P, _P, _I64, _I32, _I32, _I32, _P),
     # rows, cols, bounds, row_lo (or NULL), hits i32[H,2],
-    # words i32[H,4,128], H, n, tol, stream
-    "vdf_band_pack": (_P, _P, _P, _P, _P, _P, _I64, _I32, _I32, _P),
+    # words i32[H,4,128], H, chunk (hits per block), n, tol, stream
+    "vdf_band_pack": (_P, _P, _P, _P, _P, _P, _I64, _I32, _I32, _I32, _P),
     # packed, bounds, first_ct, n_ct, tile_off i64[R], counts i32[R,slots],
     # words i32[tiles,4,128], R, rt0, slots, n, tol, stream
     "vdf_band_sweep": (_P, _P, _P, _P, _P, _P, _P, _I64, _I32, _I32, _I32, _I32, _P),
@@ -55,7 +55,7 @@ _SIGNATURES = {
 _LOCK = threading.Lock()
 _LIB: ctypes.CDLL | None = None
 # what the last build did: seconds spent in nvcc (0.0 on a cache hit),
-# the library path, and nvcc's stderr (ptxas register/spill report)
+# the library path, and nvcc's output (ptxas register/spill report)
 BUILD_INFO: dict = {}
 
 
@@ -125,11 +125,11 @@ def _start(cmd: list[str]) -> tuple[list[str], subprocess.Popen]:
 
 
 def _finish(cmd: list[str], proc: subprocess.Popen) -> str:
-    """Wait for one nvcc; its stderr (the ptxas report), or raise."""
-    _, err = proc.communicate()
+    """Wait for one nvcc; its output (the ptxas report), or raise."""
+    out, err = proc.communicate()
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{err}")
-    return err
+        raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{out}{err}")
+    return out + err
 
 
 def load_library() -> ctypes.CDLL:
