@@ -16,6 +16,12 @@ with the kernel launch counts set to 0 just before it and read just after:
   1M library appended in 8 shuffled chunks, (b) appended sorted (zero-copy
   state) on K2 + K3 and on K4, (c) grown by 100,000 rows and searched at
   1.1M, (d) the 10k x 1M references search over a resident library;
+* ``scale_8m``: a library of 8,000,000 hashes resident on the card, swept by
+  the two-phase sweep in slabs of row tiles (K2 + K3 under the counts
+  budget) and, as the independent check, by K4; then the public ``search``
+  and ``search_with_references`` (10,000 references) over it;
+* ``native_cpu``: on the card's host, with ``device="cpu"``, the native host
+  runtime (``native.py``, built by g++) against the card's results;
 * ``device_preproc_1080p``: letterbox detection, resize and hash of 64
   synthetic 1920x1080 videos on the card (``hash_raw_frames_device``),
   flushed at the pipeline's 512 MiB;
@@ -83,6 +89,12 @@ N_VIDEOS = 64  # synthetic 1080p videos of device_preproc_1080p
 VIDEO_SHAPE = (16, 1080, 1920)
 N_GOLDEN_VIDEOS = 4  # videos held to the golden cubes bit for bit
 HOST_WORKERS = 6  # processes running the host letterbox check
+N_SCALE = 8_000_000  # hashes of scale_8m (the 1M recipe, not cut)
+SEAM_BUDGETS = (1 << 20, 1 << 17)  # forced counts budgets at 1M: 6 and 43 slabs
+SAMPLE_ROW_TILES = 4  # row tiles of each slab held to the plain versions at 8M
+SAMPLE_TOL_LOOSE = 470  # ... also at a tolerance most of their tiles hold matches at
+N_NATIVE = 100_000  # rows of the 1M library searched by native_cpu
+N_NATIVE_REFS = 1_000  # references of native_cpu's windowed sweep
 FULL_LIST_TILES = 65_536  # least length of pack_full's hit list
 FULL_LIST_SAMPLE = 31  # 1 tile in 31 of it is held to the plain version
 # synthetic bars (top, bottom, left, right, grey level): letterbox,
@@ -284,6 +296,15 @@ def planted_library(n: int, seed: int, n_clusters: int = N_CLUSTERS):
     return packed, durations, starts
 
 
+def planted_pairs(starts: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """The (i, j) pairs inside ``planted_library``'s clusters, lexicographic:
+    all a random library of this recipe holds within the tolerance."""
+    pairs = sorted((int(s) + a, int(s) + b) for s in starts
+                   for a in range(CLUSTER_SIZE) for b in range(a + 1, CLUSTER_SIZE))
+    ii, jj = zip(*pairs)
+    return np.array(ii, np.int64), np.array(jj, np.int64)
+
+
 def self_bounds(durations: np.ndarray) -> np.ndarray:
     thresh = (durations.astype(np.float64) * 1.1).astype(np.int64)
     return np.searchsorted(durations, thresh, side="right")
@@ -361,6 +382,261 @@ def reset(counters) -> None:
 
 def counts(counters) -> dict:
     return {fn.__name__: fn.launches for fn in counters}
+
+
+def measured(fn, counters, dev):
+    """``fn()`` with the launch counts at 0 before it: its result, wall
+    seconds (synchronised), peak device memory above what was allocated
+    before it, and the launches."""
+    reset(counters)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    return out, seconds, torch.cuda.max_memory_allocated(dev) - base, counts(counters)
+
+
+def same_pairs(a, b) -> bool:
+    return np.array_equal(a[0], b[0]) and np.array_equal(a[1], b[1])
+
+
+def seam_check(hc, state, hits, words, pairs) -> dict:
+    """The 1M sweep under forced small counts budgets: the slabs' hit tiles
+    and K3 words, concatenated, and the pairs must equal the one-slab
+    sweep's."""
+    slabs = {}
+    for budget in SEAM_BUDGETS:
+        cut = hc.count_slabs(state, budget)
+        require(len(cut) > 1, f"counts budget {budget} gave one slab at 1M")
+        s_hits, s_words = [], []
+        for rt0, rt1 in cut:
+            h = hc.hit_tiles(state, hc.band_counts(state, TOL_INT, rt0, rt1), rt0)
+            s_hits.append(h)
+            s_words.append(hc.band_pack(state, h, TOL_INT))
+        require(torch.equal(torch.cat(s_hits), hits),
+                f"budget {budget}: the slabs' hit tiles differ from the one-slab sweep's")
+        require(torch.equal(torch.cat(s_words), words),
+                f"budget {budget}: the slabs' K3 words differ from the one-slab sweep's")
+        got = hc.banded_adjacency_cuda(state, TOL_INT, counts_budget=budget)
+        require(same_pairs(got, pairs), f"budget {budget}: pairs differ from the one-slab sweep's")
+        slabs[budget] = len(cut)
+    return slabs
+
+
+def scale_8m_phase(dev, vdf, hc, hb) -> dict:
+    """``scale_8m``: 8,000,000 hashes of the 1M recipe resident on the card.
+    (a) the slabbed K2 + K3 sweep and K4 over one state, pairs exact against
+    the planted pairs and against each other; K2's and K3's device time slab
+    by slab and K4's range by range; (b) three sampled slabs of K2 and K3
+    against the plain versions; (c) the public ``search`` over the resident
+    sorted library; (d) ``search_with_references`` of 10,000 references."""
+    counters = (hc.band_counts, hc.band_pack, hb.band_sweep)
+    t0 = time.perf_counter()
+    packed, durations, starts = planted_library(N_SCALE, SEED)
+    bounds = self_bounds(durations)
+    want = planted_pairs(starts)
+    make_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    lib = hc.IncrementalDeviceLibrary(dev, capacity=N_SCALE)
+    for part in np.array_split(packed, LIBRARY_CHUNKS):
+        lib.append(part)
+    state = lib.state(np.arange(N_SCALE), bounds)
+    torch.cuda.synchronize()
+    resident_s = time.perf_counter() - t0
+    require(state.packed.data_ptr() == lib.packed.data_ptr(), "scale_8m: the state copied the library")
+    comps = state.comparisons()
+    slabs = hc.count_slabs(state)
+    ranges = hb.band_ranges(state)
+
+    # (a) the public sweeps over the state, counted
+    pairs, sweep_s, sweep_peak, sweep_launches = measured(
+        lambda: hc.banded_adjacency_cuda(state, TOL_INT), counters, dev)
+    require(same_pairs(pairs, want), f"scale_8m: K2 + K3 found {len(pairs[0])} pairs,"
+            f" {len(want[0])} planted")
+    with_band = sum(bool(state.n_ct[a:b].any()) for a, b in slabs)
+    require(sweep_launches["band_counts"] == with_band and len(slabs) > 1
+            and 1 <= sweep_launches["band_pack"] <= with_band and sweep_launches["band_sweep"] == 0,
+            f"scale_8m: {len(slabs)} slabs, launches {sweep_launches}")
+    band_pairs, band_s, band_peak, band_launches = measured(
+        lambda: hb.banded_adjacency_band(None, None, TOL_INT, state=state), counters, dev)
+    require(same_pairs(band_pairs, pairs), f"scale_8m: K4 found {len(band_pairs[0])} pairs")
+    require(band_launches == {"band_counts": 0, "band_pack": 0, "band_sweep": len(ranges)},
+            f"scale_8m: {len(ranges)} ranges, launches {band_launches}")
+    # the kernels' own time: K2 and K3 slab by slab, K4 range by range
+    k2_ms = k3_ms = k4_ms = 0.0
+    n_hits, cells = 0, 0
+    for rt0, rt1 in slabs:
+        cnt, ms = timed(lambda: hc.band_counts(state, TOL_INT, rt0, rt1))
+        k2_ms += ms
+        cells = max(cells, cnt.numel())
+        hits = hc.hit_tiles(state, cnt, rt0)
+        _, ms = timed(lambda: hc.band_pack(state, hits, TOL_INT))
+        k3_ms += ms
+        n_hits += hits.shape[0]
+        del cnt
+    for rt0, rt1 in ranges:
+        k4_ms += timed(lambda: hb.band_sweep(state, TOL_INT, rt0, rt1))[1]
+    k2_bound_ms, k2_by = k2_bound(state)
+    k4_bound_ms, _ = bound(
+        sweep_inputs(state) + state.n_row_tiles * state.slots * 4 + n_hits * hc.TILE * 16,
+        2 * 1024 * comps, INT8_OPS_PER_S)
+    phase("scale_8m_a", bound="exact", hashes=N_SCALE, make_library_s=round(make_s, 2),
+          resident_s=round(resident_s, 3), comparisons=comps, pairs=len(pairs[0]),
+          planted_pairs=len(want[0]), row_tiles=state.n_row_tiles, slots=state.slots,
+          slabs=len(slabs), slab_counts_bytes=4 * cells,
+          one_state_counts_bytes=4 * state.n_row_tiles * state.slots,
+          sweep_s=round(sweep_s, 3), comps_per_s=f"{comps / sweep_s:.4g}",
+          peak_bytes=sweep_peak, launches=json.dumps(sweep_launches),
+          counts_ms=round(k2_ms, 2), counts_bound_ms=round(k2_bound_ms, 2),
+          counts_bound_by=k2_by, counts_bound_share=round(k2_bound_ms / k2_ms, 4),
+          hit_tiles=n_hits, pack_call_ms=round(k3_ms, 3),
+          band_sweep_s=round(band_s, 3), band_comps_per_s=f"{comps / band_s:.4g}",
+          band_ranges=len(ranges), band_peak_bytes=band_peak,
+          band_launches=json.dumps(band_launches), band_kernel_ms=round(k4_ms, 2),
+          band_bound_share=round(k4_bound_ms / k4_ms, 4))
+
+    # (b) K2 and K3 on three sampled slabs against the plain versions: the
+    # row tiles around the first, the middle and the last planted cluster,
+    # at the search's tolerance and at a loose one (random pairs lie at
+    # 500 +/- 16 bits, so most tiles then hold matches)
+    R = state.n_row_tiles
+    sampled = {}
+    by_row = np.sort(starts)
+    for name, s in (("first", by_row[0]), ("middle", by_row[len(by_row) // 2]), ("last", by_row[-1])):
+        rt0 = min(int(s) // hc.TILE, R - SAMPLE_ROW_TILES)
+        rt1 = rt0 + SAMPLE_ROW_TILES
+        # every band tile of the slab's first row tile, whatever it holds
+        row0 = torch.stack([torch.full((int(state.n_ct[rt0]),), rt0, device=dev),
+                            int(state.first_ct[rt0]) + torch.arange(int(state.n_ct[rt0]), device=dev)],
+                           dim=1).to(torch.int32)
+        pairs = {}
+        for tol in (TOL_INT, SAMPLE_TOL_LOOSE):
+            ck = hc.band_counts(state, tol, rt0, rt1)
+            cp = hc.band_counts_plain(state, tol, rt0, rt1)
+            require(ck.shape == cp.shape and torch.equal(ck, cp),
+                    f"scale_8m: K2 over row tiles [{rt0}, {rt1}) at {tol} differs from the plain version")
+            tiles = row0 if tol != TOL_INT else torch.cat([hc.hit_tiles(state, cp, rt0), row0]).contiguous()
+            err = bit_diff(hc.band_pack(state, tiles, tol), hc.band_pack_plain(state, tiles, tol))
+            require(err == 0, f"scale_8m: K3 over row tiles [{rt0}, {rt1}) at {tol} differs by {err} bits")
+            pairs[tol] = int(cp.sum())
+            del ck, cp
+        require(pairs[TOL_INT] >= CLUSTER_SIZE and pairs[SAMPLE_TOL_LOOSE] > pairs[TOL_INT],
+                f"scale_8m: sampled slab [{rt0}, {rt1}) holds {pairs} pairs")
+        sampled[name] = dict(row_tiles=[rt0, rt1], band_tiles=int(state.n_ct[rt0:rt1].sum()),
+                             pairs=pairs[TOL_INT], loose_pairs=pairs[SAMPLE_TOL_LOOSE],
+                             pack_tiles=row0.shape[0])
+    phase("scale_8m_b", bound=f"exact at {TOL_INT} and {SAMPLE_TOL_LOOSE}", sampled=json.dumps(sampled))
+
+    # (c) the public search over the resident, sorted library
+    t0 = time.perf_counter()
+    paths = [f"s{i:07d}" for i in range(N_SCALE)]
+    hashes = vdf.VideoHash.many_from_packed_u32(packed, paths, durations)
+    objects_s = time.perf_counter() - t0
+    planted = {frozenset(paths[s + k] for k in range(CLUSTER_SIZE)) for s in starts}
+    groups, search_s, search_peak, search_launches = measured(
+        lambda: vdf.search(hashes, TOLERANCE, device_library=lib, device=dev), counters, dev)
+    found = groups_as_sets(groups)
+    require(found == planted, f"scale_8m: search found {len(found & planted)} of"
+            f" {len(planted)} planted groups ({len(found)} found)")
+    require(search_launches["band_counts"] == with_band and search_launches["band_sweep"] == 0,
+            f"scale_8m: search launches {search_launches}")
+    phase("scale_8m_c", groups=len(groups), planted_found=len(found & planted),
+          objects_s=round(objects_s, 2), search_s=round(search_s, 3),
+          sweep_s=round(sweep_s, 3), host_s=round(search_s - sweep_s, 3),
+          peak_bytes=search_peak, launches=json.dumps(search_launches))
+
+    # (d) 10,000 references, every 100th a copy of a candidate outside the clusters
+    rng = np.random.default_rng(SEED + 2)
+    ref_durs = np.sort(rng.integers(30, 7200, N_REFS))
+    lo = np.searchsorted(durations, (ref_durs * 0.95).astype(np.int64), "left")
+    hi = np.searchsorted(durations, (ref_durs * 1.05).astype(np.int64), "right")
+    refs = rng.integers(0, 2**32, (N_REFS, 32), dtype=np.uint64).astype(np.uint32)
+    in_cluster = set((starts[:, None] + np.arange(CLUSTER_SIZE)).ravel().tolist())
+    plants = {}
+    for k in range(0, N_REFS, REFS_PLANT_EVERY):
+        c = int(lo[k])
+        while c in in_cluster:
+            c += 1
+        require(c < hi[k], f"scale_8m: reference {k} has no candidate to copy")
+        refs[k] = packed[c]
+        plants[f"/r/{k:06}.mp4"] = {paths[c]}
+    ref_hashes = vdf.VideoHash.many_from_packed_u32(
+        refs, (f"/r/{k:06}.mp4" for k in range(N_REFS)), ref_durs)
+    ref_groups, refs_s, refs_peak, refs_launches = measured(
+        lambda: vdf.search_with_references(ref_hashes, hashes, TOLERANCE, device_library=lib,
+                                           device=dev), counters, dev)
+    got = {g.reference: set(g.duplicates) for g in ref_groups}
+    require(len(plants) == N_REFS // REFS_PLANT_EVERY and got == plants,
+            f"scale_8m: refs search found {sum(got.get(k) == v for k, v in plants.items())}"
+            f" of the {len(plants)} planted pairs ({len(got)} groups)")
+    require(refs_launches["band_counts"] > 0 and refs_launches["band_pack"] > 0,
+            f"scale_8m: refs launches {refs_launches}")
+    phase("scale_8m_d", refs=N_REFS, candidates=N_SCALE, comparisons=int(np.sum(hi - lo)),
+          planted_found=len(got), seconds=round(refs_s, 3), peak_bytes=refs_peak,
+          launches=json.dumps(refs_launches))
+    return dict(slabs=len(slabs), ranges=len(ranges), sweep=sweep_launches, band=band_launches,
+                search=search_launches, refs=refs_launches, k2_ms=k2_ms, k2_bound_ms=k2_bound_ms,
+                k3_call_ms=k3_ms, hit_tiles=n_hits, k4_ms=k4_ms, k4_bound_ms=k4_bound_ms,
+                sweep_s=sweep_s, band_s=band_s, sweep_peak=sweep_peak, band_peak=band_peak)
+
+
+def native_cpu_phase(dev, vdf, packed, durations, paths, starts, refs_case) -> None:
+    """``native_cpu``: the native host runtime on the card's host.  Builds
+    the library with g++, searches the first 100,000 rows of the 1M library
+    with ``backend="native"`` on ``device="cpu"`` against the card's
+    ``search`` on the same rows, and holds ``refs_windowed_native`` and
+    ``distances_one_native`` to the card's references sweep on a sample."""
+    from vid_dup_finder_lib_tpu_torch import native
+    from vid_dup_finder_lib_tpu_torch.ops.hamming import refs_adjacency
+
+    t0 = time.perf_counter()
+    require(native.available(), "native_cpu: the native library did not build")
+    build_s = time.perf_counter() - t0
+    macros = subprocess.run(["g++", "-march=native", "-dM", "-E", "-x", "c++", os.devnull],
+                            capture_output=True, text=True, check=True).stdout
+    with open("/proc/cpuinfo") as f:
+        cpu = next((ln.split(":", 1)[1].strip() for ln in f if ln.startswith("model name")), "?")
+    sub = vdf.VideoHash.many_from_packed_u32(
+        packed[:N_NATIVE], paths[:N_NATIVE], durations[:N_NATIVE])
+    planted = {frozenset(paths[s + k] for k in range(CLUSTER_SIZE))
+               for s in starts if s + CLUSTER_SIZE <= N_NATIVE}
+    comps = int(np.maximum(self_bounds(durations[:N_NATIVE]) - np.arange(1, N_NATIVE + 1), 0).sum())
+    t0 = time.perf_counter()
+    host_groups = vdf.search(sub, TOLERANCE, backend="native", device="cpu")
+    native_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    auto_groups = vdf.search(sub, TOLERANCE, device="cpu")
+    auto_s = time.perf_counter() - t0
+    card_groups = vdf.search(sub, TOLERANCE, device=dev)
+    require(groups_as_sets(host_groups) == planted and len(planted) > 0,
+            f"native_cpu: {len(groups_as_sets(host_groups) & planted)} of {len(planted)} planted groups")
+    require(host_groups == card_groups and auto_groups == card_groups,
+            "native_cpu: the native search's groups differ from the card's")
+    refs, cands, lo, hi = refs_case
+    t0 = time.perf_counter()
+    ni, nj = native.refs_windowed_native(
+        refs.view(np.uint64), cands.view(np.uint64), lo, hi, TOL_INT)
+    refs_s = time.perf_counter() - t0
+    ci, cj = refs_adjacency(refs, cands, lo, hi, TOL_INT, device=dev)
+    require(len(ni) > 0 and np.array_equal(ni, ci) and np.array_equal(nj, cj),
+            f"native_cpu: windowed sweep {len(ni)} pairs, the card {len(ci)}")
+    k = int(ni[0])  # a reference with a match: its distances name the same candidates
+    dist = native.distances_one_native(refs[k], cands[lo[k] : hi[k]])
+    require(np.array_equal(dist, np.bitwise_count(cands[lo[k] : hi[k]] ^ refs[k]).sum(1)),
+            "native_cpu: distances differ from NumPy's popcount")
+    require((np.nonzero(dist <= TOL_INT)[0] + lo[k]).tolist() == cj[ci == k].tolist(),
+            "native_cpu: distances within tolerance name other candidates than the card")
+    refs_comps = int(np.sum(hi - lo))
+    phase("native_cpu", bound="exact", gxx_seconds=round(build_s, 3),
+          avx512_vpopcntdq="__AVX512VPOPCNTDQ__" in macros, cpu=repr(cpu),
+          threads=os.cpu_count(), rows=N_NATIVE, comparisons=comps, groups=len(host_groups),
+          search_s=round(native_s, 4), auto_search_s=round(auto_s, 4),
+          comps_per_s=f"{comps / native_s:.4g}", includes="Search.__init__ and the replay",
+          refs=len(refs), refs_comparisons=refs_comps, refs_pairs=len(ni),
+          refs_sweep_s=round(refs_s, 4), refs_comps_per_s=f"{refs_comps / refs_s:.4g}")
 
 
 def device_preproc_phase(dev, hash_cubes) -> int:
@@ -645,15 +921,19 @@ def main() -> int:
                              lambda: hc.band_counts(state, TOL_INT))
     n_hits = hits.shape[0]
     k3_bound_ms, k3_bound_by = k3_bound(state, hits)
+    reset(counters)
     t0 = time.perf_counter()
     pairs_i, pairs_j = hc.banded_adjacency_cuda(state, TOL_INT)
     sweep_s = time.perf_counter() - t0
+    require(hc.count_slabs(state) == [(0, state.n_row_tiles)] and hc.band_counts.launches == 1,
+            f"the default counts budget gives one slab and one K2 launch at 1M: {counts(counters)}")
     t0 = time.perf_counter()
     pi, pj = hc.banded_adjacency_plain(state, TOL_INT)
     sweep_plain_s = time.perf_counter() - t0
     require(np.array_equal(pairs_i, pi) and np.array_equal(pairs_j, pj),
             f"1M pairs: kernel {len(pairs_i)} vs plain {len(pi)}")
-    phase("search_1m", bound="exact", comparisons=comps, pairs=len(pairs_i), hit_tiles=hits.shape[0],
+    seam_slabs = seam_check(hc, state, hits, wk3, (pairs_i, pairs_j))
+    phase("search_1m", seam_slabs=json.dumps(seam_slabs), bound="exact", comparisons=comps, pairs=len(pairs_i), hit_tiles=hits.shape[0],
           sweep_s=round(sweep_s, 4), sweep_plain_s=round(sweep_plain_s, 4),
           comps_per_s=f"{comps / sweep_s:.4g}",
           counts_ms=round(k2_ms, 3), counts_plain_ms=round(k2_plain_ms, 3),
@@ -839,22 +1119,13 @@ def main() -> int:
     lib_launches = {}
 
     def library_run(name, fn, lib_counters=two_phase):
-        """Run ``fn`` counted, with its wall seconds and peak device
-        memory above what was allocated before it."""
-        reset(band_counters)
-        torch.cuda.synchronize()
-        base = torch.cuda.memory_allocated(dev)
-        torch.cuda.reset_peak_memory_stats(dev)
-        t0 = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        seconds = time.perf_counter() - t0
-        launched = counts(band_counters)
+        """Run ``fn`` counted (:func:`measured`); the kernels of
+        ``lib_counters`` must have launched."""
+        out, seconds, peak, launched = measured(fn, band_counters, dev)
         require(all(launched[fn.__name__] > 0 for fn in lib_counters),
                 f"library_1m ({name}): kernels launched {launched}")
         lib_launches[name] = launched
-        return out, dict(seconds=round(seconds, 4),
-                         peak_bytes=torch.cuda.max_memory_allocated(dev) - base,
+        return out, dict(seconds=round(seconds, 4), peak_bytes=peak,
                          launches=json.dumps(launched))
 
     def appended(rows, chunks=LIBRARY_CHUNKS):
@@ -934,6 +1205,11 @@ def main() -> int:
           upload_seconds=round(refs_e2e_s, 4), **d)
     del lib
 
+    native_cpu_phase(dev, vdf, packed, durations, paths, starts,
+                     (refs[:N_NATIVE_REFS], cands, lo[:N_NATIVE_REFS], hi[:N_NATIVE_REFS]))
+    del cand_hashes, ref_hashes, cands, rst
+    scale = scale_8m_phase(dev, vdf, hc, hb)
+
     # ---- real content: the frozen hashes of the bundled cat/dog videos
     with open(os.path.join(REPO, "tests", "oracles", "reference_vids_hashes.json")) as f:
         oracle = [vdf.VideoHash.from_json(v) for v in json.load(f).values()]
@@ -995,7 +1271,11 @@ def main() -> int:
              library_ms=None, bound_share=k2_bound_ms / k2_ms,
              refs_launches=refs_launches["band_counts"], refs_max_abs_err=k2_refs_err,
              refs_ms=k2_refs_ms, refs_plain_ms=k2_refs_plain_ms, refs_bound_ms=k2_refs_bound_ms,
-             new_phase_launches={f"library_1m_{k}": v["band_counts"] for k, v in lib_launches.items()}),
+             scale_8m_ms=scale["k2_ms"], scale_8m_bound_ms=scale["k2_bound_ms"],
+             scale_8m_slabs=scale["slabs"],
+             new_phase_launches={
+                 **{f"library_1m_{k}": v["band_counts"] for k, v in lib_launches.items()},
+                 **{f"scale_8m_{k}": scale[k]["band_counts"] for k in ("sweep", "search", "refs")}}),
         dict(name="band_pack_kernel", route="cuda", source=csrc + "hamming_band.cu",
              replaces="vid_dup_finder_lib_tpu/ops/hamming_pallas.py:130",
              launches=launches["band_pack"], max_abs_err=k3_err,
@@ -1009,13 +1289,20 @@ def main() -> int:
              full_ms=k3_full_ms, full_tiles=n_full, full_bound_ms=k3_full_bound_ms,
              full_max_abs_err=k3_full_err, full_us_per_tile_per_sm=k3_full_us,
              counts_us_per_tile_per_sm=k2_us,
-             new_phase_launches={f"library_1m_{k}": v["band_pack"] for k, v in lib_launches.items()}),
+             scale_8m_call_ms=scale["k3_call_ms"], scale_8m_hit_tiles=scale["hit_tiles"],
+             new_phase_launches={
+                 **{f"library_1m_{k}": v["band_pack"] for k, v in lib_launches.items()},
+                 **{f"scale_8m_{k}": scale[k]["band_pack"] for k in ("sweep", "search", "refs")}}),
         dict(name="band_sweep_kernel", route="cuda", source=csrc + "band_sweep.cu",
              replaces="vid_dup_finder_lib_tpu/ops/hamming_band.py:50",
              launches=band_launches["band_sweep"], max_abs_err=k4_err,
              ms=k4_ms, plain_ms=k4_plain_ms, bound_ms=k4_bound_ms, bound_by=k4_bound_by,
              library_ms=None, bound_share=k4_bound_ms / k4_ms,
-             new_phase_launches={f"library_1m_{k}": v["band_sweep"] for k, v in lib_launches.items()}),
+             scale_8m_ms=scale["k4_ms"], scale_8m_bound_ms=scale["k4_bound_ms"],
+             scale_8m_ranges=scale["ranges"],
+             new_phase_launches={
+                 **{f"library_1m_{k}": v["band_sweep"] for k, v in lib_launches.items()},
+                 "scale_8m_band": scale["band"]["band_sweep"]}),
     ]
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -398,6 +398,114 @@ def test_k2_state_after_a_later_append(dev):
     assert int(_k2_equal(grown, 350).sum()) >= int(before.sum()) + n % hc.TILE
 
 
+# -- K2 over slabs of row tiles, and the slabbed sweep ------------------------
+
+
+def _sweep_state(mode, dev, n=1000, tol=350):
+    if mode == "self":
+        return hc.SearchState(*_planted_at(n, tol, seed=21), dev)
+    return hc.RefsState(*CASES["windowed1000x333"](), dev)
+
+
+@pytest.mark.parametrize("which", ["first", "inner", "last", "one_tile", "all", "empty"])
+@pytest.mark.parametrize("mode", ["self", "window"])
+def test_k2_row_tile_ranges_equal_plain(dev, mode, which):
+    """One launch over row tiles [rt0, rt1): counts relative to the range,
+    as wide as its widest band, equal to the plain version's range and to
+    those rows of the whole state's counts."""
+    st = _sweep_state(mode, dev)
+    R = st.n_row_tiles
+    rt0, rt1 = {"first": (0, 2), "inner": (1, R - 1), "last": (R - 2, R),
+                "one_tile": (R // 2, R // 2 + 1), "all": (0, R), "empty": (1, 1)}[which]
+    whole = _k2_equal(st, 350)
+    before = hc.band_counts.launches
+    got = hc.band_counts(st, 350, rt0, rt1)
+    torch.cuda.synchronize()
+    assert hc.band_counts.launches == before + (got.numel() > 0)
+    want = hc.band_counts_plain(st, 350, rt0, rt1)
+    assert got.shape == want.shape == (rt1 - rt0, int(st.n_ct[rt0:rt1].max(initial=0)))
+    assert torch.equal(got, want)
+    assert torch.equal(got, whole[rt0:rt1, : got.shape[1]])
+    if which != "empty":
+        assert int(got.sum()) > 0
+    hits = hc.hit_tiles(st, got, rt0)
+    all_hits = hc.hit_tiles(st, whole)
+    keep = (all_hits[:, 0] >= rt0) & (all_hits[:, 0] < rt1)
+    assert torch.equal(hits, all_hits[keep])
+
+
+@pytest.mark.parametrize("budget", [None, 40, 7, 1])
+@pytest.mark.parametrize("mode", ["self", "window"])
+def test_slabbed_sweep_on_cuda_equals_one_slab(dev, mode, budget):
+    """The sweep in slabs of row tiles: the one-slab sweep's pairs in the
+    one-slab sweep's order, one K2 launch per slab with a band and one K3
+    launch per slab with a hit, equal to the plain versions' pairs."""
+    st = _sweep_state(mode, dev)
+    sweep = hc.banded_adjacency_cuda if mode == "self" else hc.refs_adjacency_cuda
+    plain = hc.banded_adjacency_plain if mode == "self" else hc.refs_adjacency_plain
+    one = sweep(st, 350, counts_budget=10**12)
+    slabs = hc.count_slabs(st, budget)
+    assert len(slabs) == (1 if budget is None else st.n_row_tiles if budget == 1 else len(slabs))
+    k2, k3 = hc.band_counts.launches, hc.band_pack.launches
+    got = sweep(st, 350, counts_budget=budget)
+    with_band = sum(bool(st.n_ct[a:b].any()) for a, b in slabs)
+    assert hc.band_counts.launches == k2 + with_band
+    assert 1 <= hc.band_pack.launches - k3 <= with_band
+    want = plain(st, 350, counts_budget=budget)
+    assert len(got[0]) > 0
+    for other in (one, want):
+        np.testing.assert_array_equal(got[0], other[0])
+        np.testing.assert_array_equal(got[1], other[1])
+
+
+def test_k2_at_a_row_tile_offset_past_2_to_24_rows(dev):
+    """A resident library of 2^24 + 4096 rows whose only wide bands are its
+    last 4096 rows': K2 over the last row tiles (rt0 past 131,072) against
+    the plain version, and the slabbed sweep finds the pairs planted there,
+    with row and column indices past 2^24."""
+    n = 2**24 + 4096
+    gen = torch.Generator(device=dev).manual_seed(5)
+    lib = torch.randint(-2**31, 2**31 - 1, (n, 32), dtype=torch.int32, device=dev, generator=gen)
+    planted = [(2**24 + 100, 2**24 + 101), (2**24 + 127, 2**24 + 128), (n - 300, n - 1)]
+    for a, b in planted:
+        lib[b] = lib[a]
+    bounds = np.arange(1, n + 1, dtype=np.int64)  # no band ...
+    bounds[2**24:] = np.minimum(np.arange(2**24, n) + 500, n)  # ... but for the last rows
+    st = hc.SearchState(lib, bounds, lib.device, n=n)
+    R = st.n_row_tiles
+    assert R == 2**17 + 32 and st.slots >= 4
+    for rt0, rt1 in ((R - 32, R - 24), (R - 1, R), (R - 40, R)):
+        got = hc.band_counts(st, 0, rt0, rt1)
+        torch.cuda.synchronize()
+        assert torch.equal(got, hc.band_counts_plain(st, 0, rt0, rt1))
+    for budget in (None, 2**17):
+        i, j = hc.banded_adjacency_cuda(st, 0, counts_budget=budget)
+        assert list(zip(i.tolist(), j.tolist())) == planted
+    bi, bj = hb.banded_adjacency_band(None, None, 0, state=st)
+    assert list(zip(bi.tolist(), bj.tolist())) == planted
+
+
+def test_grow_raises_a_capacity_error(dev, monkeypatch):
+    """A growth that the free device memory cannot hold beside the old
+    buffer raises a ValueError naming rows and bytes, before allocating;
+    the library stays as it was."""
+    lib = IncrementalDeviceLibrary(dev, capacity=128)
+    rows = np.random.default_rng(2).integers(0, 2**32, (100, 32), dtype=np.uint64).astype(np.uint32)
+    lib.append(rows)
+    real = torch.cuda.mem_get_info
+    monkeypatch.setattr(torch.cuda, "mem_get_info", lambda d=None: (1000, real(d)[1]))
+    monkeypatch.setattr(torch.cuda, "memory_reserved", lambda d=None: torch.cuda.memory_allocated(d))
+    with pytest.raises(ValueError, match=r"cannot grow to 200 rows.*256 rows needs 32768 bytes"
+                                         r".*16384.*1000 bytes free"):
+        lib.append(rows)
+    assert lib.n == 100 and lib.capacity == 128
+    np.testing.assert_array_equal(lib.take_rows(np.arange(100)), rows)
+    lib.append(rows[:28])  # an append that fits the capacity asks for nothing
+    monkeypatch.undo()
+    lib.append(rows)
+    assert lib.n == 228 and lib.capacity == 256
+
+
 # -- K4 on the tensor cores: counts and hit-tile words equal to the plain ----
 
 

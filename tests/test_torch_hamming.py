@@ -4,8 +4,12 @@ against the JAX package's Pallas sweep and its NumPy host sweep.
 The same NumPy-made libraries go through both packages; pairs must be
 identical (exact integer semantics, no tolerance).  The plain versions of
 the two CUDA kernels are also held, tile by tile and word by word, to what
-the host pairs imply.
+the host pairs imply.  The sweep walks slabs of row tiles under a budget of
+count cells; budgets that give one, two and many slabs must give the same
+pairs in the same order.
 """
+
+import functools
 
 import numpy as np
 import pytest
@@ -69,7 +73,7 @@ def _library(name):
 def test_pairs_match_jax_host_and_pallas(name, tol):
     packed, bounds = _library(name)
     hi, hj = banded_adjacency_host(packed, bounds, tol)
-    ti, tj = banded_adjacency(packed, bounds, tol, device=CPU)
+    ti, tj = banded_adjacency(packed, bounds, tol, backend="device", device=CPU)
     assert ti.dtype == np.int64 and tj.dtype == np.int64
     np.testing.assert_array_equal(ti, hi)
     np.testing.assert_array_equal(tj, hj)
@@ -269,3 +273,140 @@ def test_k3_walk_against_brute_force_runs(name, chunk):
     expansions = sum(e for block in blocks for _, e in block)
     starts = sum(1 for h in range(len(hits)) if h % chunk == 0 or hits[h, 0] != hits[h - 1, 0])
     assert expansions == starts
+
+
+# -- the slabbed sweep: counts of a slab of row tiles at a time ---------------
+
+
+def _seam_library():
+    """1,000 random hashes, all in one duration window, with a cluster of
+    four near copies on rows 126..129 (across the seam of row tiles 0 and 1),
+    a pair inside row tile 3 and nothing else within 350 bits."""
+    rng = np.random.default_rng(41)
+    packed = rng.integers(0, 2**32, (1000, 32), dtype=np.uint64).astype(np.uint32)
+    for k in (127, 128, 129):
+        packed[k] = _flip(packed[126], rng, 60)
+    packed[400] = _flip(packed[390], rng, 60)
+    return packed, np.full(1000, 1000, dtype=np.int64)
+
+
+SLAB_LIBRARIES = {**LIBRARIES, "seam": lambda rng: _seam_library()}
+SLAB_NAMES = ["random900", "dense300", "pad_bits", "ragged130", "seam"]
+
+
+def budget_for(state, n_slabs):
+    """The largest counts budget that cuts ``state`` into at least
+    ``n_slabs`` slabs."""
+    for budget in range(state.n_row_tiles * max(state.slots, 1), 0, -1):
+        if len(hc.count_slabs(state, budget)) >= n_slabs:
+            return budget
+    raise AssertionError(f"no budget gives {n_slabs} slabs")
+
+
+@pytest.mark.parametrize("budget", [None, 10**12, 40, 7, 1])
+@pytest.mark.parametrize("name", SLAB_NAMES + ["empty", "single"])
+def test_count_slabs_cover_the_state_within_the_budget(name, budget):
+    """Consecutive slabs from row tile 0 to the last; each fits the budget
+    or is a single row tile, and could not have taken one row tile more."""
+    packed, bounds = SLAB_LIBRARIES[name](np.random.default_rng(5))
+    state = hc.SearchState(packed, bounds, CPU)
+    slabs = hc.count_slabs(state, budget)
+    cells = lambda a, b: (b - a) * int(state.n_ct[a:b].max(initial=0))
+    cap = hc.COUNTS_BUDGET if budget is None else budget
+    assert [a for a, _ in slabs] == [0] * bool(slabs) + [b for _, b in slabs[:-1]]
+    assert (slabs[-1][1] if slabs else 0) == state.n_row_tiles
+    for a, b in slabs:
+        assert b > a and (cells(a, b) <= cap or b == a + 1)
+        assert b == state.n_row_tiles or cells(a, b + 1) > cap
+    if budget in (None, 10**12):
+        assert len(slabs) == min(1, state.n_row_tiles)
+    if budget == 1:
+        assert slabs == [(r, r + 1) for r in range(state.n_row_tiles)]
+
+
+@functools.lru_cache(maxsize=None)
+def _slab_references(name):
+    """What every slabbed sweep of library ``name`` must give: the
+    one-slab sweep's pairs at 350 and 1100 bits, which equal the host
+    sweep's and, at 350, the JAX package's Pallas sweep's."""
+    packed, bounds = SLAB_LIBRARIES[name](np.random.default_rng(sum(map(ord, name))))
+    state = hc.SearchState(packed, bounds, CPU)
+    one = {tol: hc.banded_adjacency_cuda(state, tol, counts_budget=10**12) for tol in (350, 1100)}
+    for tol, pairs in one.items():
+        host = banded_adjacency_host(packed, bounds, tol)
+        np.testing.assert_array_equal(pairs[0], host[0])
+        np.testing.assert_array_equal(pairs[1], host[1])
+    pi, pj = banded_adjacency_pallas(packed, bounds, 350, interpret=True)
+    np.testing.assert_array_equal(one[350][0], pi)
+    np.testing.assert_array_equal(one[350][1], pj)
+    return state, one
+
+
+@pytest.mark.parametrize("slabs", [1, 2, "many", "one_row_tile_each"])
+@pytest.mark.parametrize("name", SLAB_NAMES)
+def test_slabbed_sweep_matches_one_slab_host_and_pallas(name, slabs):
+    state, one = _slab_references(name)
+    R = state.n_row_tiles
+    if slabs == "one_row_tile_each":
+        budget = 1
+    else:
+        budget = budget_for(state, min(3, R) if slabs == "many" else slabs)
+    cut = hc.count_slabs(state, budget)
+    assert len(cut) >= {1: 1, 2: 2, "many": min(3, R), "one_row_tile_each": R}[slabs]
+    assert len(cut) == slabs or slabs not in (1, 2)
+    assert len(cut) == R or slabs != "one_row_tile_each"
+    # on a CPU state banded_adjacency_cuda runs the plain versions; the
+    # all-pairs tolerance only where it is cheap
+    for tol, want in one.items():
+        if tol == 1100 and name not in ("dense300", "ragged130", "seam"):
+            continue
+        got = hc.banded_adjacency_cuda(state, tol, counts_budget=budget)
+        assert got[0].dtype == np.int64 and got[1].dtype == np.int64
+        np.testing.assert_array_equal(got[0], want[0])
+        np.testing.assert_array_equal(got[1], want[1])
+
+
+def test_slab_seam_inside_a_cluster_and_slabs_without_a_hit():
+    """One row tile per slab: the cluster on rows 126..129 gives pairs in
+    slabs 0 and 1 (tiles (0, 0), (0, 1), (1, 1)), the pair (390, 400) in
+    slab 3, and the other slabs find nothing."""
+    packed, bounds = _seam_library()
+    state = hc.SearchState(packed, bounds, CPU)
+    want = [(126, 127), (126, 128), (126, 129), (127, 128), (127, 129), (128, 129), (390, 400)]
+    per_slab = []
+    for rt0, rt1 in hc.count_slabs(state, 1):
+        counts = hc.band_counts(state, 350, rt0, rt1)
+        assert counts.shape == (1, int(state.n_ct[rt0]))
+        per_slab.append(hc.hit_tiles(state, counts, rt0).tolist())
+    assert per_slab == [[[0, 0], [0, 1]], [[1, 1]], [], [[3, 3]], [], [], [], []]
+    for budget in (1, 9, None):
+        i, j = hc.banded_adjacency_cuda(state, 350, counts_budget=budget)
+        assert list(zip(i.tolist(), j.tolist())) == want
+
+
+@pytest.mark.parametrize("name", ["random900", "dense300", "ragged130", "seam"])
+def test_plain_counts_of_a_range_are_rows_of_the_whole(name):
+    """``band_counts_plain(state, tol, rt0, rt1)``: the rows rt0..rt1-1 of
+    the whole state's counts, as wide as the range's widest band (the
+    columns past it are zero in the whole), and ``hit_tiles`` with ``rt0``
+    names the same tiles."""
+    packed, bounds = SLAB_LIBRARIES[name](np.random.default_rng(sum(map(ord, name))))
+    state = hc.SearchState(packed, bounds, CPU)
+    R = state.n_row_tiles
+    whole = hc.band_counts_plain(state, 350)
+    assert whole.shape == (R, state.slots)
+    all_hits = hc.hit_tiles(state, whole)
+    for rt0, rt1 in {(0, R), (0, 1), (R - 1, R), (1, R), (R // 2, R // 2 + 1), (1, 1), (R, R)}:
+        if rt0 > rt1 or rt1 > R:
+            continue
+        part = hc.band_counts_plain(state, 350, rt0, rt1)
+        slots = int(state.n_ct[rt0:rt1].max(initial=0))
+        assert part.shape == (rt1 - rt0, slots) and part.dtype == torch.int32
+        assert torch.equal(part, whole[rt0:rt1, :slots])
+        assert not whole[rt0:rt1, slots:].any()
+        assert torch.equal(hc.band_counts(state, 350, rt0, rt1), part)
+        keep = (all_hits[:, 0] >= rt0) & (all_hits[:, 0] < rt1)
+        assert torch.equal(hc.hit_tiles(state, part, rt0), all_hits[keep])
+    for bad in ((-1, 1), (2, 1), (0, R + 1)):
+        with pytest.raises(ValueError):
+            hc.band_counts_plain(state, 350, *bad)

@@ -138,6 +138,7 @@ def test_port_runs_with_jax_and_the_jax_package_unimportable(tmp_path):
         from vid_dup_finder_lib_tpu_torch.cache import VideoHashFilesystemCache
         from vid_dup_finder_lib_tpu_torch.models.pipeline import hash_videos
         from vid_dup_finder_lib_tpu_torch.ops.hamming_cuda import IncrementalDeviceLibrary
+        from vid_dup_finder_lib_tpu_torch import native
         from vid_dup_finder_lib_tpu_torch.search import BACKENDS
 
         rng = np.random.default_rng(3)
@@ -146,9 +147,21 @@ def test_port_runs_with_jax_and_the_jax_package_unimportable(tmp_path):
         durs = np.repeat(np.sort(rng.integers(30, 7200, 200)), 2)
         paths = [f"v{{i}}" for i in range(400)]
         hashes = vdf.VideoHash.many_from_packed_u32(packed, paths, durs)
+        assert "native" in BACKENDS and native.available()
         for backend in BACKENDS:
             groups = vdf.search(hashes, 0.35, backend=backend, device="cpu")
             assert len(groups) == 200, (backend, len(groups))
+        # the native sweeps themselves: the banded one, the windowed
+        # references one (which the batched search below takes) and the
+        # one-to-many distances of search_one
+        ni, nj = native.banded_adjacency_native(
+            packed.view(np.uint64), np.full(400, 400), 0)
+        assert (ni.tolist(), nj.tolist()) == (list(range(0, 400, 2)), list(range(1, 400, 2)))
+        ri, rj = native.refs_windowed_native(
+            packed[:2].view(np.uint64), packed.view(np.uint64), [0, 0], [400, 400], 0)
+        assert (ri.tolist(), rj.tolist()) == ([0, 0, 1, 1], [0, 1, 0, 1])
+        assert native.distances_one_native(packed[0], packed[:3]).tolist()[:2] == [0, 0]
+        assert native.count_leq_native(packed.view(np.uint64), np.full(400, 400), 0) == 200
         lib = IncrementalDeviceLibrary("cpu")
         lib.append(packed)
         for refs in (hashes[::40], hashes[::5]):  # per reference, batched
@@ -584,10 +597,7 @@ def test_every_jax_package_host_module_has_a_counterpart():
     mesh code each have a file of the same name in the port, apart from
     those the port replaces under another design."""
     jax_root = os.path.join(REPO, "vid_dup_finder_lib_tpu")
-    replaced = {
-        "native.py",  # the CPU fast path, still to be ported
-        "utils/jaxconfig.py", "__main__.py",
-    }
+    replaced = {"utils/jaxconfig.py", "__main__.py"}
     device_code = re.compile(r"^\s*(import|from)\s+(jax|\.+(parallel|native|ops\.hamming_pallas"
                              r"|ops\.hash_pallas|utils\.jaxconfig))\b", re.M)
     absent = []
@@ -623,6 +633,35 @@ def _same_source_after_the_docstring(rel):
 @pytest.mark.parametrize("rel", ["utils/modulo.py", "ops/compositing.py", "debug_util.py"])
 def test_last_host_copies_keep_the_original_code(rel):
     assert _same_source_after_the_docstring(rel)
+
+
+def test_native_runtime_is_the_original_apart_from_its_build():
+    """``native_src/vdf_native.cpp`` is the original byte for byte, and
+    ``native.py`` the original's code apart from ``_build_lib`` (its own
+    temporary file per building process, a default cache in the checkout)
+    and the helper that chooses that cache."""
+    import ast
+
+    rel = os.path.join("native_src", "vdf_native.cpp")
+    with open(os.path.join(REPO, "vid_dup_finder_lib_tpu", rel), "rb") as fh:
+        original = fh.read()
+    with open(os.path.join(PORT, rel), "rb") as fh:
+        assert fh.read() == original
+    repaired = {"_build_lib", "_default_cache_dir"}
+    bodies = []
+    for package in ("vid_dup_finder_lib_tpu", "vid_dup_finder_lib_tpu_torch"):
+        with open(os.path.join(REPO, package, "native.py"), encoding="utf-8") as fh:
+            tree = ast.parse(fh.read())
+        assert ast.get_docstring(tree)
+        kept = [node for node in tree.body[1:]
+                if not (isinstance(node, ast.FunctionDef) and node.name in repaired)]
+        assert len(kept) == len(tree.body) - 1 - (1 if package.endswith("tpu") else 2)
+        bodies.append(ast.dump(ast.Module(body=kept, type_ignores=[])))
+    assert bodies[0] == bodies[1]
+    with open(os.path.join(PORT, "native.py"), encoding="utf-8") as fh:
+        text = fh.read()
+    assert "vid_dup_finder_lib_tpu/native.py" in ast.get_docstring(ast.parse(text))
+    assert "os.getpid()" in text and '".tmp"' not in text
 
 
 def test_modulo_matches_the_jax_package():

@@ -6,9 +6,12 @@ popcount, and the public ``search_with_references`` and
 
 Inputs are made with NumPy from a seed; pairs, matches and groups are held
 exactly.  Two subprocess tests show that the port's references search
-never reaches jax.
+never reaches jax.  The batched search is held here on the plain window-mode
+versions (``VDF_REFS_NATIVE=0``); tests/test_torch_native.py holds the native
+windowed sweep a CPU Search takes by default.
 """
 
+import functools
 import os
 import subprocess
 import sys
@@ -28,6 +31,13 @@ from vid_dup_finder_lib_tpu_torch.ops.hamming import refs_adjacency
 
 CPU = torch.device("cpu")
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+@pytest.fixture(autouse=True)
+def plain_window_mode(monkeypatch):
+    """The batched references search through K2/K3's plain versions, in
+    both packages, not through the native windowed sweep."""
+    monkeypatch.setenv("VDF_REFS_NATIVE", "0")
 
 
 def _brute_force(refs, cands, lo, hi, tol):
@@ -102,6 +112,51 @@ def test_refs_adjacency_matches_jax_pallas_interpret(case, tol):
     np.testing.assert_array_equal(tj, jj)
     if tol == 470 and case.startswith("windowed"):
         assert len(ti) > 0
+
+
+@functools.lru_cache(maxsize=None)
+def _slab_references(case):
+    """What every slabbed sweep of ``case`` must give: the one-slab
+    sweep's pairs at 350 and 470 bits, which equal the brute force's and,
+    at 470, the JAX package's Pallas sweep's; and the whole plain counts."""
+    refs, cands, lo, hi = CASES[case]()
+    state = hc.RefsState(refs, cands, lo, hi, CPU)
+    one = {tol: hc.refs_adjacency_cuda(state, tol, counts_budget=10**12) for tol in (350, 470)}
+    for tol, (i, j) in one.items():
+        assert list(zip(i.tolist(), j.tolist())) == _brute_force(refs, cands, lo, hi, tol)
+    ji, jj = refs_adjacency_pallas(refs, cands, lo, hi, 470, interpret=True)
+    np.testing.assert_array_equal(one[470][0], ji)
+    np.testing.assert_array_equal(one[470][1], jj)
+    return state, one, hc.band_counts_plain(state, 470)
+
+
+@pytest.mark.parametrize("budget", [10**12, "two", "many", 1])
+@pytest.mark.parametrize("case", ["windowed1000x333", "windowed300x200", "lib_random900",
+                                  "lib_dense300", "lib_ragged130"])
+def test_slabbed_refs_sweep_matches_one_slab_bruteforce_and_pallas(case, budget):
+    """Window mode in slabs of ref tiles: budgets that give one slab, two,
+    many, and one ref tile each give the one-slab sweep's pairs, in order."""
+    from tests.test_torch_hamming import budget_for
+
+    state, one, whole = _slab_references(case)
+    R = state.n_row_tiles
+    if budget == "two":
+        budget = budget_for(state, min(2, R))
+    elif budget == "many":
+        budget = budget_for(state, min(3, R))
+    cut = hc.count_slabs(state, budget)
+    assert cut[0][0] == 0 and cut[-1][1] == R
+    assert len(cut) == (1 if budget == 10**12 else R if budget == 1 else len(cut))
+    for tol, want in one.items():
+        got = hc.refs_adjacency_cuda(state, tol, counts_budget=budget)
+        np.testing.assert_array_equal(got[0], want[0])
+        np.testing.assert_array_equal(got[1], want[1])
+    # (on a CPU state refs_adjacency_cuda runs the plain versions)
+    # the range form of the plain counts: rows of the whole
+    for rt0, rt1 in cut:
+        part = hc.band_counts_plain(state, 470, rt0, rt1)
+        assert torch.equal(part, whole[rt0:rt1, : part.shape[1]])
+        assert not whole[rt0:rt1, part.shape[1] :].any()
 
 
 def _expected_tiles(state, pairs):

@@ -49,8 +49,13 @@
 // The TPU grid ran in order and carried a row tile's count across the
 // band axis in its output block.  CUDA blocks run in any order, so each
 // block writes its own entries and nothing is carried between blocks.
-// The grid covers the whole [row tiles, runs of SEG slots] rectangle;
-// a block past its row tile's band exits at once.
+// One launch covers a slab of consecutive row tiles [rt0, rt0 + row_tiles)
+// and writes counts relative to it, [row_tiles, slots] with slots the
+// slab's widest band: the wrapper walks a large library slab by slab, so
+// the counts never outgrow a fixed budget (ops/hamming_cuda.py
+// count_slabs).  The grid covers the slab's [row tiles, runs of SEG slots]
+// rectangle; a block past its row tile's band exits at once.  Rows, windows
+// and band metadata are indexed by the global row tile.
 //
 // band_pack_kernel on an H100.  Its work is the same dot product for the
 // 128 x 128 pairs of each hit tile, and 2 KB of words per tile; the
@@ -89,15 +94,16 @@ band_counts_kernel(const int32_t* __restrict__ rows_m,    // [row tiles * TILE, 
                    const int32_t* __restrict__ row_lo,    // [rows] or null (c > r)
                    const int32_t* __restrict__ first_ct,  // [row tiles]
                    const int32_t* __restrict__ n_ct,      // [row tiles]
-                   int32_t* __restrict__ counts,          // [row tiles, slots], zeroed
-                   int slots, int n, int thresh) {
+                   int32_t* __restrict__ counts,          // [slab row tiles, slots], zeroed
+                   int rt0, int slots, int n, int thresh) {
   extern __shared__ uint8_t smem_raw[];
   uint8_t* a_s = aligned_slabs(smem_raw);                     // [SLABS][TILE][SLAB]
   uint8_t* b_s = a_s + SLABS * SLAB_BYTES;                    // [2][TILE][SLAB]
   int2* win = reinterpret_cast<int2*>(b_s + 2 * SLAB_BYTES);  // per row: (lo, hi)
 
   const int segs = (slots + SEG - 1) / SEG;
-  const int rt = static_cast<int>(blockIdx.x / segs);
+  const int r = static_cast<int>(blockIdx.x / segs);  // row tile of the slab
+  const int rt = rt0 + r;                             // ... and of the state
   const int t0 = static_cast<int>(blockIdx.x % segs) * SEG;
   const int t1 = min(t0 + SEG, n_ct[rt]);
   if (t0 >= t1) return;  // uniform over the block
@@ -139,7 +145,7 @@ band_counts_kernel(const int32_t* __restrict__ rows_m,    // [row tiles * TILE, 
     if (more) load_tile(nxt, cbase + (t + 1) * TILE_U2);
     tile_products(d, da, db, b_s, er, eh, cur, nxt, more);
     const int cnt = __reduce_add_sync(0xffffffffu, count_hits(d, (ct0 + t) * TILE, cq, w0, w1, thresh));
-    if (lane == 0 && cnt) atomicAdd(counts + static_cast<int64_t>(rt) * slots + t, cnt);
+    if (lane == 0 && cnt) atomicAdd(counts + static_cast<int64_t>(r) * slots + t, cnt);
 #pragma unroll
     for (int k = 0; k < SLABS; ++k) cur[k] = nxt[k];
   }
@@ -219,14 +225,16 @@ band_pack_kernel(const int32_t* __restrict__ rows_m,  // [row tiles * TILE, 32]
 
 }  // namespace
 
+// Row tiles [rt0, rt0 + row_tiles) of the state into counts[row_tiles,
+// slots]; no row tile of the slab may have a band wider than slots.
 // row_lo may be null: the self-search's window c > r.  counts must be
 // zeroed.  tol comes in clamped to [-1, 1024] (ops/hamming_cuda.py
 // _clamp_tol), so the threshold 1024 - 2 tol stays in range.
 extern "C" int vdf_band_counts(const void* rows, const void* cols,
                                const void* bounds, const void* row_lo,
                                const void* first_ct, const void* n_ct,
-                               void* counts, int64_t row_tiles, int32_t slots,
-                               int32_t n, int32_t tol, void* stream) {
+                               void* counts, int64_t row_tiles, int32_t rt0,
+                               int32_t slots, int32_t n, int32_t tol, void* stream) {
   const int64_t blocks = row_tiles * ((slots + SEG - 1) / SEG);
   if (blocks >= (int64_t{1} << 31)) return static_cast<int>(cudaErrorInvalidConfiguration);
   if (blocks == 0) return static_cast<int>(cudaGetLastError());
@@ -239,7 +247,7 @@ extern "C" int vdf_band_counts(const void* rows, const void* cols,
       static_cast<const int32_t*>(rows), static_cast<const int32_t*>(cols),
       static_cast<const int32_t*>(bounds), static_cast<const int32_t*>(row_lo),
       static_cast<const int32_t*>(first_ct), static_cast<const int32_t*>(n_ct),
-      static_cast<int32_t*>(counts), slots, n, 1024 - 2 * tol);
+      static_cast<int32_t*>(counts), rt0, slots, n, 1024 - 2 * tol);
   return static_cast<int>(cudaGetLastError());
 }
 

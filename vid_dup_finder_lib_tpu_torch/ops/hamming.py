@@ -6,14 +6,20 @@ Backends of :func:`banded_adjacency`:
 
 * ``"host"``: :func:`banded_adjacency_host`, a NumPy sweep (the JAX
   package's ``banded_adjacency_host``, copied).
-* ``"auto"`` or ``"device"``: the two-phase sweep of :mod:`.hamming_cuda`
-  (K2 + K3) on ``device`` -- its kernels on a CUDA device, their plain
-  versions on the CPU.
+* ``"native"``: the C++ XOR + POPCNT sweep of :mod:`..native` on the host's
+  cores, whatever ``device`` is; raises when the library cannot be built.
+* ``"device"``: the two-phase sweep of :mod:`.hamming_cuda` (K2 + K3) on
+  ``device`` -- its kernels on a CUDA device, their plain versions on the
+  CPU.
 * ``"band"``: the whole-band sweep of :mod:`.hamming_band` (K4) on
   ``device``, the same way.
+* ``"auto"``: on a CUDA device the two-phase sweep; on the CPU the native
+  sweep when its library is available, else the two-phase sweep's plain
+  versions (the JAX package's choice on a host without an accelerator,
+  ``ops/hamming.py:544-565``).
 
 :func:`refs_adjacency` runs K2 + K3 in their per-row window mode.  A device
-failure is an error: nothing falls back to another backend.
+failure is an error, and an explicit backend never gives way to another.
 """
 
 from __future__ import annotations
@@ -22,6 +28,7 @@ import numpy as np
 import torch
 
 from ..definitions import HASH_BITS_PADDED
+from .. import native
 from ..utils.device import resolve_device
 from .hamming_band import banded_adjacency_band
 from .hamming_cuda import (
@@ -31,7 +38,7 @@ from .hamming_cuda import (
     refs_adjacency_cuda,
 )
 
-BACKENDS = ("auto", "device", "host", "band")
+BACKENDS = ("auto", "device", "host", "band", "native")
 
 _BIT_SHIFTS = np.arange(32, dtype=np.uint32)
 
@@ -44,6 +51,12 @@ def unpack_pm1_host(packed: np.ndarray, dtype=np.float32) -> np.ndarray:
     bits = (packed[:, :, None] >> _BIT_SHIFTS[None, None, :]) & np.uint32(1)
     pm = (bits.astype(np.int8) * 2 - 1).reshape(n, HASH_BITS_PADDED)
     return pm.astype(dtype)
+
+
+def hamming_matrix_host(packed_a: np.ndarray, packed_b: np.ndarray) -> np.ndarray:
+    """Dense pairwise Hamming distances via XOR+popcount (small inputs)."""
+    x = packed_a[:, None, :] ^ packed_b[None, :, :]
+    return np.bitwise_count(x).sum(axis=2).astype(np.int64)
 
 
 def banded_adjacency_host(
@@ -95,8 +108,22 @@ def banded_adjacency(
         raise ValueError(f"unknown backend {backend!r}; expected one of {BACKENDS}")
     if backend == "band":
         return banded_adjacency_band(packed, bounds, tolerance_int, device=device)
-    state = SearchState(packed, bounds, resolve_device(device))
-    return banded_adjacency_cuda(state, tolerance_int)
+    if backend == "native":
+        if not native.available():
+            raise RuntimeError(
+                "backend='native': the native library could not be built from"
+                " native_src/vdf_native.cpp (g++ missing or failing)"
+            )
+        return _banded_adjacency_native(packed, bounds, tolerance_int)
+    dev = resolve_device(device)
+    if backend == "auto" and dev.type == "cpu" and native.available():
+        return _banded_adjacency_native(packed, bounds, tolerance_int)
+    return banded_adjacency_cuda(SearchState(packed, bounds, dev), tolerance_int)
+
+
+def _banded_adjacency_native(packed, bounds, tolerance_int):
+    packed64 = np.ascontiguousarray(packed, dtype=np.uint32).view(np.uint64)
+    return native.banded_adjacency_native(packed64, bounds, tolerance_int)
 
 
 def refs_adjacency(

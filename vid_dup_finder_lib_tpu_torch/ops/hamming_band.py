@@ -37,6 +37,7 @@ from .hamming_cuda import (
     WORDS_PER_COL,
     SearchState,
     _clamp_tol,
+    _slab,
     decode_words,
     pack_words,
     pm1_pair,
@@ -70,20 +71,13 @@ def tile_offsets(state: SearchState, rt0: int, rt1: int) -> torch.Tensor:
     return torch.cumsum(nct, 0) - nct
 
 
-def _check_range(state: SearchState, rt0: int, rt1: int) -> None:
-    if not 0 <= rt0 <= rt1 <= state.n_row_tiles:
-        raise ValueError(
-            f"row tiles [{rt0}, {rt1}) outside [0, {state.n_row_tiles})"
-        )
-
-
 def band_sweep_plain(
     state: SearchState, tol: int, rt0: int, rt1: int
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Plain version of ``band_sweep_kernel`` over row tiles ``[rt0, rt1)``:
     ``(counts, words)`` as :func:`band_sweep` returns them, every tile's
     words written."""
-    _check_range(state, rt0, rt1)
+    _slab(state, rt0, rt1)  # checks the range
     dev = state.device
     counts = torch.zeros((rt1 - rt0, state.slots), dtype=torch.int32, device=dev)
     words = torch.zeros(
@@ -117,7 +111,7 @@ def band_sweep(
     stream); CPU state -> :func:`band_sweep_plain`."""
     if state.device.type == "cpu":
         return band_sweep_plain(state, tol, rt0, rt1)
-    _check_range(state, rt0, rt1)
+    _slab(state, rt0, rt1)  # checks the range
     dev = state.device
     counts = torch.empty((rt1 - rt0, state.slots), dtype=torch.int32, device=dev)
     words = torch.empty(

@@ -26,7 +26,15 @@ slots").  The sweep has two phases, as on the TPU:
   column ``c`` of hit tile ``h``, bit ``b`` = row ``32r + b``.
 
 Nonzero words are then decoded to ``(i, j)`` on the device with torch
-ops.  A tensor on a CUDA device goes through the kernels of
+ops.  The sweep walks consecutive slabs of row tiles (:func:`count_slabs`),
+each with counts of its own that fit ``COUNTS_BUDGET`` cells, so its
+scratch is bounded by that budget and by the pairs found: the dense counts
+of a whole library grow with its square (23 MB at 1M hashes of
+chip_smoke.py's recipe, 1.4 GB at 8M, 23 GB at 32M).  This is the port's
+counterpart of the JAX package's windowed and split states
+(``WindowedPallasState``, ``SplitWindowState``, ``ChunkedPackedStore``,
+``WindowedRefsState``), which slide a window over the TPU kernels' 1 KB/hash
+int8 operand; the kernels here read the packed rows, 128 B/hash.  A tensor on a CUDA device goes through the kernels of
 ``csrc/hamming_band.cu`` (both on the int8 tensor cores); one on the CPU through the plain versions
 (:func:`band_counts_plain`, :func:`band_pack_plain`), which unpack the
 bits to +/-1 and take ``dot = 1024 - 2 * ham`` from a float matmul (exact:
@@ -46,6 +54,8 @@ TILE = 128  # rows per row tile == columns per column tile (csrc TILE)
 WORDS_PER_COL = TILE // 32  # packed words per column of a tile
 ROW_LO_SENTINEL = 2**30  # row_lo of a pad row: no column lies above it
 PACK_CHUNK_MAX = 32  # most hit tiles one block of band_pack_kernel walks
+COUNTS_BUDGET = 1 << 26  # most int32 count cells of one slab: 256 MiB
+PLAIN_SPAN = 1 << 18  # columns band_counts_plain unpacks beyond one band: 1 GiB of f32
 
 
 def launch_metadata(
@@ -280,7 +290,10 @@ class IncrementalDeviceLibrary:
     the buffer in place.  The capacity is a multiple of the 128-row tile
     and doubles when an append needs more: growth allocates the new
     buffer and copies the old rows across, so for that moment the device
-    holds both, three times the old buffer's bytes.
+    holds both, three times the old buffer's bytes.  On a CUDA device a
+    growth that the free memory cannot hold raises a ``ValueError`` naming
+    the rows and the bytes (the counterpart of the JAX package's
+    ``check_packed_capacity``), before anything is allocated.
 
     :meth:`state` hands the rows to a :class:`SearchState` in a
     duration-sorted order: zero-copy (a view of ``packed``) when the order
@@ -321,6 +334,21 @@ class IncrementalDeviceLibrary:
         cap = self.capacity
         while cap < need:
             cap *= 2
+        if self.device.type == "cuda":
+            # the old buffer stays until the copy is done: the new one must
+            # fit beside it (torch's cached free blocks count as free)
+            need_bytes = cap * HASH_WORDS32 * 4
+            free = torch.cuda.mem_get_info(self.device)[0] + (
+                torch.cuda.memory_reserved(self.device)
+                - torch.cuda.memory_allocated(self.device)
+            )
+            if need_bytes > free:
+                raise ValueError(
+                    f"the device library cannot grow to {need} rows: its new"
+                    f" buffer of {cap} rows needs {need_bytes} bytes beside"
+                    f" the old one's {self.capacity * HASH_WORDS32 * 4}, and"
+                    f" {self.device} has {free} bytes free"
+                )
         grown = torch.zeros((cap, HASH_WORDS32), dtype=torch.int32, device=self.device)
         grown[: self.n].copy_(self.packed[: self.n])
         self.packed = grown
@@ -403,30 +431,59 @@ def row_tile_adjacency_plain(
     state: SweepState, pm_rows: torch.Tensor, pm_cols: torch.Tensor, rt: int, tol: int
 ) -> torch.Tensor:
     """bool[TILE rows, n_ct[rt] band slots, TILE columns]: the kernels'
-    predicate for row tile ``rt`` against every column tile of its band."""
-    nct = int(state.n_ct[rt])
+    predicate for row tile ``rt`` against every column tile of its band,
+    from the whole matrices over {-1, +1} (:func:`pm1_pair`)."""
     r0 = rt * TILE
     c0 = int(state.first_ct[rt]) * TILE
-    c1 = c0 + nct * TILE
-    dot = pm_rows[r0 : r0 + TILE] @ pm_cols[c0:c1].T  # [TILE, nct * TILE]
+    c1 = c0 + int(state.n_ct[rt]) * TILE
+    return _adjacency_plain(state, pm_rows[r0 : r0 + TILE], pm_cols[c0:c1], r0, c0, tol)
+
+
+def _adjacency_plain(
+    state: SweepState, pm_r: torch.Tensor, pm_c: torch.Tensor, r0: int, c0: int, tol: int
+) -> torch.Tensor:
+    """The predicate for rows ``r0 ..`` (``pm_r``, one tile) against the
+    columns ``c0 ..`` (``pm_c``, whole tiles): bool[TILE, tiles, TILE]."""
+    dot = pm_r @ pm_c.T  # [TILE, tiles * TILE]
     lo, hi = _window(state, torch.arange(r0, r0 + TILE, device=state.device))
-    cols = torch.arange(c0, c1, device=state.device)[None, :]
+    cols = torch.arange(c0, c0 + pm_c.shape[0], device=state.device)[None, :]
     adj = (dot >= _thresh(tol)) & (cols > lo[:, None]) & (cols < hi[:, None])
-    return adj.view(TILE, nct, TILE)
+    return adj.view(TILE, -1, TILE)
 
 
-def band_counts_plain(state: SweepState, tol: int) -> torch.Tensor:
-    """Plain version of ``band_counts_kernel``: int32[row tiles, slots],
-    for a :class:`SearchState` or a :class:`RefsState`."""
-    counts = torch.zeros(
-        (state.n_row_tiles, state.slots), dtype=torch.int32, device=state.device
-    )
-    if state.slots == 0:
-        return counts
-    pm_rows, pm_cols = pm1_pair(state)
-    for rt in np.nonzero(state.n_ct)[0].tolist():
-        adj = row_tile_adjacency_plain(state, pm_rows, pm_cols, rt, tol)
-        counts[rt, : adj.shape[1]] = adj.sum(dim=(0, 2)).to(torch.int32)
+def _slab(state: SweepState, rt0: int, rt1: int | None) -> tuple[int, int]:
+    """``(rt1, slots)`` of the slab of row tiles ``[rt0, rt1)`` (``rt1``
+    None: to the last): its end, checked, and its widest band."""
+    rt1 = state.n_row_tiles if rt1 is None else rt1
+    if not 0 <= rt0 <= rt1 <= state.n_row_tiles:
+        raise ValueError(
+            f"row tiles [{rt0}, {rt1}) outside [0, {state.n_row_tiles})"
+        )
+    return rt1, int(state.n_ct[rt0:rt1].max(initial=0))
+
+
+def band_counts_plain(
+    state: SweepState, tol: int, rt0: int = 0, rt1: int | None = None
+) -> torch.Tensor:
+    """Plain version of ``band_counts_kernel``: int32[rt1 - rt0, slots]
+    over the row tiles ``[rt0, rt1)`` (default: all), ``slots`` that
+    slab's widest band, for a :class:`SearchState` or a :class:`RefsState`.
+    It unpacks a span of columns at a time, never the whole library."""
+    rt1, slots = _slab(state, rt0, rt1)
+    counts = torch.zeros((rt1 - rt0, slots), dtype=torch.int32, device=state.device)
+    s0 = s1 = 0  # the span of columns unpacked in pm_cols
+    pm_cols = None
+    for rt in (rt0 + np.nonzero(state.n_ct[rt0:rt1])[0]).tolist():
+        r0, c0 = rt * TILE, int(state.first_ct[rt]) * TILE
+        c1 = c0 + int(state.n_ct[rt]) * TILE
+        if not s0 <= c0 <= c1 <= s1:
+            # the band and PLAIN_SPAN more: the next row tiles' bands too
+            s0, s1 = c0, c1 + PLAIN_SPAN
+            pm_cols = pm1(state.cols[s0:s1])
+        adj = _adjacency_plain(
+            state, pm1(state.rows[r0 : r0 + TILE]), pm_cols[c0 - s0 : c1 - s0], r0, c0, tol
+        )
+        counts[rt - rt0, : adj.shape[1]] = adj.sum(dim=(0, 2)).to(torch.int32)
     return counts
 
 
@@ -461,18 +518,20 @@ def band_pack_plain(
 # -- kernel wrappers ---------------------------------------------------------
 
 
-def band_counts(state: SweepState, tol: int) -> torch.Tensor:
-    """Phase A: match count per (row tile, band slot), int32[R, slots],
-    for a :class:`SearchState` or a :class:`RefsState`.
+def band_counts(
+    state: SweepState, tol: int, rt0: int = 0, rt1: int | None = None
+) -> torch.Tensor:
+    """Phase A: match count per (row tile, band slot) of the row tiles
+    ``[rt0, rt1)`` (default: all), int32[rt1 - rt0, slots] with ``slots``
+    that slab's widest band (``state.slots`` for the whole state), for a
+    :class:`SearchState` or a :class:`RefsState`.
 
     CUDA state -> ``band_counts_kernel`` (one launch on the current
     stream); CPU state -> :func:`band_counts_plain`."""
     if state.device.type == "cpu":
-        return band_counts_plain(state, tol)
-    counts = torch.zeros(
-        (state.n_row_tiles, state.slots), dtype=torch.int32,
-        device=state.device,
-    )
+        return band_counts_plain(state, tol, rt0, rt1)
+    rt1, slots = _slab(state, rt0, rt1)
+    counts = torch.zeros((rt1 - rt0, slots), dtype=torch.int32, device=state.device)
     if counts.numel() == 0:
         return counts
     lib = cuda_build.load_library()
@@ -484,7 +543,7 @@ def band_counts(state: SweepState, tol: int) -> torch.Tensor:
         cuda_build.ptr(state.first_ct_dev, "first_ct"),
         cuda_build.ptr(state.n_ct_dev, "n_ct"),
         cuda_build.ptr(counts, "counts"),
-        state.n_row_tiles, state.slots, state.n, _clamp_tol(tol),
+        rt1 - rt0, rt0, slots, state.n, _clamp_tol(tol),
         cuda_build.current_stream(state.device),
     )
     cuda_build.check(err, "band_counts_kernel")
@@ -558,12 +617,14 @@ def _row_lo_ptr(state: SweepState) -> int | None:
 # -- the two-phase sweep -----------------------------------------------------
 
 
-def hit_tiles(state: SweepState, counts: torch.Tensor) -> torch.Tensor:
-    """Phase A counts -> int32[H, 2] (row tile, column tile) of the tiles
-    holding at least one match, in row-major order."""
-    nz = torch.nonzero(counts)  # [H, 2]: row tile, band slot
-    ct = state.first_ct_dev[nz[:, 0]].to(torch.int64) + nz[:, 1]
-    return torch.stack([nz[:, 0], ct], dim=1).to(torch.int32).contiguous()
+def hit_tiles(state: SweepState, counts: torch.Tensor, rt0: int = 0) -> torch.Tensor:
+    """Phase A counts of the row tiles from ``rt0`` on -> int32[H, 2] (row
+    tile, column tile, both of the whole state) of the tiles holding at
+    least one match, in row-major order."""
+    nz = torch.nonzero(counts)  # [H, 2]: row tile of the slab, band slot
+    rt = nz[:, 0] + rt0
+    ct = state.first_ct_dev[rt].to(torch.int64) + nz[:, 1]
+    return torch.stack([rt, ct], dim=1).to(torch.int32).contiguous()
 
 
 def decode_words(
@@ -590,48 +651,80 @@ def decode_words(
     return key // state.n, key % state.n
 
 
-def _two_phase(state, tol, counts_fn, pack_fn) -> tuple[np.ndarray, np.ndarray]:
-    if state.slots == 0:
+def count_slabs(
+    state: SweepState, budget: int | None = None
+) -> list[tuple[int, int]]:
+    """Consecutive row-tile slabs ``[rt0, rt1)`` covering the state, each
+    as long as its counts -- row tiles times the slab's widest band -- fit
+    ``budget`` int32 cells (default ``COUNTS_BUDGET``), or a single row
+    tile.  A state whose whole counts fit is one slab."""
+    budget = COUNTS_BUDGET if budget is None else int(budget)
+    n_ct = state.n_ct.tolist()
+    out, rt0, widest = [], 0, 0
+    for rt, nct in enumerate(n_ct):
+        widest = max(widest, nct)
+        if rt > rt0 and (rt + 1 - rt0) * widest > budget:
+            out.append((rt0, rt))
+            rt0, widest = rt, nct
+    if n_ct:
+        out.append((rt0, len(n_ct)))
+    return out
+
+
+def _two_phase(
+    state, tol, counts_fn, pack_fn, counts_budget=None
+) -> tuple[np.ndarray, np.ndarray]:
+    """Phase A, hit list, phase B and decode, slab by slab: a slab's counts,
+    hits and words are released before the next slab's are allocated."""
+    pairs = []
+    for rt0, rt1 in count_slabs(state, counts_budget):
+        if not state.n_ct[rt0:rt1].any():
+            continue
+        hits = hit_tiles(state, counts_fn(state, tol, rt0, rt1), rt0)
+        if hits.shape[0]:
+            pairs.append(decode_words(state, hits, pack_fn(state, hits, tol)))
+    if not pairs:
         return np.zeros(0, np.int64), np.zeros(0, np.int64)
-    hits = hit_tiles(state, counts_fn(state, tol))
-    words = pack_fn(state, hits, tol)
-    ii, jj = decode_words(state, hits, words)
-    return ii.cpu().numpy(), jj.cpu().numpy()
+    # slabs ascend in rows, so their sorted pairs concatenate sorted
+    ii, jj = (torch.cat(p).cpu().numpy() for p in zip(*pairs))
+    return ii, jj
 
 
 def banded_adjacency_cuda(
-    state: SearchState, tol: int
+    state: SearchState, tol: int, counts_budget: int | None = None
 ) -> tuple[np.ndarray, np.ndarray]:
     """All pairs (i, j), i < j < bounds[i], with hamming <= tol, as int64
     NumPy arrays in lexicographic order (the contract of
-    ``hamming_pallas.banded_adjacency_pallas``).
+    ``hamming_pallas.banded_adjacency_pallas``), swept in slabs of at most
+    ``counts_budget`` count cells (:func:`count_slabs`).
 
     The kernels run for a CUDA state, their plain versions for a CPU one."""
-    return _two_phase(state, tol, band_counts, band_pack)
+    return _two_phase(state, tol, band_counts, band_pack, counts_budget)
 
 
 def banded_adjacency_plain(
-    state: SearchState, tol: int
+    state: SearchState, tol: int, counts_budget: int | None = None
 ) -> tuple[np.ndarray, np.ndarray]:
     """The same sweep over the plain versions, on any device (the
     reference the kernels are held to on the card)."""
-    return _two_phase(state, tol, band_counts_plain, band_pack_plain)
+    return _two_phase(state, tol, band_counts_plain, band_pack_plain, counts_budget)
 
 
 def refs_adjacency_cuda(
-    state: RefsState, tol: int
+    state: RefsState, tol: int, counts_budget: int | None = None
 ) -> tuple[np.ndarray, np.ndarray]:
     """All pairs (i, j), lo[i] <= j < hi[i], with hamming <= tol, as int64
     NumPy arrays in lexicographic order, i in ref space (the contract of
-    ``hamming_pallas.refs_adjacency_pallas``).
+    ``hamming_pallas.refs_adjacency_pallas``), swept in slabs of ref tiles
+    like :func:`banded_adjacency_cuda`.
 
     The kernels run in their window mode for a CUDA state, their plain
     versions for a CPU one."""
-    return _two_phase(state, tol, band_counts, band_pack)
+    return _two_phase(state, tol, band_counts, band_pack, counts_budget)
 
 
 def refs_adjacency_plain(
-    state: RefsState, tol: int
+    state: RefsState, tol: int, counts_budget: int | None = None
 ) -> tuple[np.ndarray, np.ndarray]:
     """The references sweep over the plain versions, on any device."""
-    return _two_phase(state, tol, band_counts_plain, band_pack_plain)
+    return _two_phase(state, tol, band_counts_plain, band_pack_plain, counts_budget)

@@ -24,9 +24,13 @@ so replaying over a precomputed duration-windowed adjacency is exact.
 
 Backends of ``search``:
 
-* ``"auto"``: below 4096 entries the reference's pairwise loop, above it
-  the two-phase adjacency on ``device``;
+* ``"auto"``: below 4096 entries the reference's pairwise loop; above it
+  the two-phase adjacency on a CUDA ``device``, and on the CPU the native
+  sweep when its library is available, else the two-phase adjacency's plain
+  versions;
 * ``"device"``: the two-phase adjacency (K2 + K3) on ``device`` at any size;
+* ``"native"``: the adjacency from the C++ XOR + POPCNT sweep on the host's
+  cores (:mod:`.native`) at any size; raises when it cannot be built;
 * ``"band"``: the whole-band adjacency (K4) on ``device`` at any size;
 * ``"host"``: the adjacency from the NumPy sweep
   (:func:`.ops.hamming.banded_adjacency_host`);
@@ -36,7 +40,12 @@ A device-resident library (:class:`.ops.hamming_cuda.IncrementalDeviceLibrary`,
 ``device_library=``) replaces the host packed matrix: the sweep states are
 built from its rows on the device, and only the references travel host to
 device.  ``auto`` and ``device`` then sweep by K2 + K3, ``band`` by K4, at
-any size; ``host`` and ``naive`` keep to the host.
+any size; ``host``, ``native`` and ``naive`` keep to the host.
+
+A Search on the CPU without a resident library also takes the native
+library for the batched references search (unless ``VDF_REFS_NATIVE=0``);
+one on a CUDA device never sweeps with it.  ``search_one`` measures its
+distances with it on any host that can build it, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -54,6 +63,7 @@ from .definitions import (
     SELF_SEARCH_DURATION_FACTOR,
     TOLERANCE_SCALING_FACTOR,
 )
+from . import native
 from .match_group import MatchGroup, TooFewEntries
 from .ops.hamming import banded_adjacency, refs_adjacency
 from .ops.hamming_band import banded_adjacency_band
@@ -61,7 +71,7 @@ from .ops.hamming_cuda import IncrementalDeviceLibrary, banded_adjacency_cuda
 from .utils.device import resolve_device
 from .video_hash import VideoHash, VideoHashBatch, hashes_to_matrix
 
-BACKENDS = ("auto", "device", "band", "host", "naive")
+BACKENDS = ("auto", "device", "band", "host", "native", "naive")
 
 # auto backend: the device adjacency from this many entries up
 _DEVICE_SEARCH_THRESHOLD = 4096
@@ -236,7 +246,7 @@ class Search:
         tol = _tolerance_int(tolerance)
 
         use_adjacency = backend != "naive" and (
-            backend in ("device", "host", "band")
+            backend in ("device", "host", "band", "native")
             or n >= _DEVICE_SEARCH_THRESHOLD
             or self._library is not None
         )
@@ -325,7 +335,10 @@ class Search:
         (video_dup_finder.rs:19-46): the references, sorted by duration,
         are swept against their [0.95d, 1.05d] windows in one
         :func:`.ops.hamming.refs_adjacency` on the Search's device, over
-        the attached library's rows when there is one.  Candidates already
+        the attached library's rows when there is one.  A Search on the CPU
+        without a library runs each window through
+        :func:`.native.refs_windowed_native` instead when that is available
+        and ``VDF_REFS_NATIVE`` is not ``0``.  Candidates already
         ``matched`` are dropped after the sweep; each reference's matches
         come in ascending candidate order, and the results in input
         order."""
@@ -337,16 +350,31 @@ class Search:
         windows = np.array(
             [self._duration_slice(refs[k].duration) for k in order], np.int64
         )
+        ref_mat = hashes_to_matrix([refs[k] for k in order])
         cands = self._ensure_cands_dev()
-        pi, pj = refs_adjacency(
-            hashes_to_matrix([refs[k] for k in order]),
-            self._packed_matrix() if cands is None else cands,
-            windows[:, 0],
-            windows[:, 1],
-            tol,
-            device=self.device,
-            n_cands=len(self.entries),
-        )
+        if (
+            cands is None
+            and self.device.type == "cpu"
+            and os.environ.get("VDF_REFS_NATIVE", "1") != "0"
+            and native.available()
+        ):
+            pi, pj = native.refs_windowed_native(
+                ref_mat.view(np.uint64),
+                np.ascontiguousarray(self._packed_matrix()).view(np.uint64),
+                windows[:, 0],
+                windows[:, 1],
+                tol,
+            )
+        else:
+            pi, pj = refs_adjacency(
+                ref_mat,
+                self._packed_matrix() if cands is None else cands,
+                windows[:, 0],
+                windows[:, 1],
+                tol,
+                device=self.device,
+                n_cands=len(self.entries),
+            )
         keep = ~self.matched[pj]
         results: list[list[str]] = [[] for _ in refs]
         for i, j in zip(pi[keep].tolist(), pj[keep].tolist()):
@@ -449,6 +477,8 @@ def _distances_one_to_many(target: VideoHash, entries: list[VideoHash]) -> np.nd
     if not entries:
         return np.zeros(0, dtype=np.int64)
     mat = hashes_to_matrix(entries)
+    if native.available():
+        return native.distances_one_native(target.packed_u32(), mat)
     t = target.packed_u32()[None, :]
     return np.bitwise_count(mat ^ t).sum(axis=1).astype(np.int64)
 
@@ -481,7 +511,9 @@ def search(
 
     With ``backend="auto"`` the environment variable ``VDF_SEARCH_BACKEND``,
     when set, names the backend (one of ``BACKENDS``), as in the JAX
-    package; a backend the port does not have raises ``ValueError``."""
+    package; a backend the port does not have raises ``ValueError``.
+    ``backend="native"`` raises ``RuntimeError`` when the native library
+    cannot be built."""
     if backend not in BACKENDS:
         raise ValueError(f"unknown backend {backend!r}; expected one of {BACKENDS}")
     if backend == "auto":

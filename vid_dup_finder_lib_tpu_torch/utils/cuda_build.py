@@ -42,8 +42,8 @@ _SIGNATURES = {
     # cubes u8[B,4096], dct f32[10,16] (kept DCT-II rows), out i32[B,32], B, stream
     "vdf_hash_dct": (_P, _P, _P, _I64, _P),
     # rows, cols, bounds, row_lo (or NULL), first_ct, n_ct,
-    # counts (zeroed), row_tiles, slots, n, tol, stream
-    "vdf_band_counts": (_P, _P, _P, _P, _P, _P, _P, _I64, _I32, _I32, _I32, _P),
+    # counts (zeroed), row_tiles, rt0, slots, n, tol, stream
+    "vdf_band_counts": (_P, _P, _P, _P, _P, _P, _P, _I64, _I32, _I32, _I32, _I32, _P),
     # rows, cols, bounds, row_lo (or NULL), hits i32[H,2],
     # words i32[H,4,128], H, chunk (hits per block), n, tol, stream
     "vdf_band_pack": (_P, _P, _P, _P, _P, _P, _I64, _I32, _I32, _I32, _P),
