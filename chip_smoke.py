@@ -20,6 +20,16 @@ with the kernel launch counts set to 0 just before it and read just after:
   the two-phase sweep in slabs of row tiles (K2 + K3 under the counts
   budget) and, as the independent check, by K4; then the public ``search``
   and ``search_with_references`` (10,000 references) over it;
+* the multi-device layer (``parallel/``) on shards of the card, which run
+  in turn with the same planning, per-shard launches, copies between shards
+  and merge as shards on cards of their own: ``ring_1m`` (the 1M library
+  through ``banded_adjacency_ring`` on 4 and on 16 shards, over distinct
+  cards where the host has two or more, and ``search(backend="ring")``),
+  ``refs_sharded_10k_x_1m`` (the references split over 4 shards, and
+  ``search_with_references`` with ``VDF_REFS_SHARDED=1``), ``sharded_hash``
+  (the 65,536 cubes over 4 shards) and ``ring_scan``
+  (``ring_candidate_scan`` of 16,384 hashes on 4 shards); ``scale_8m`` also
+  runs its resident library through the ring on 4 shards (``ring_8m``);
 * ``native_cpu``: on the card's host, with ``device="cpu"``, the native host
   runtime (``native.py``, built by g++) against the card's results;
 * ``device_preproc_1080p``: letterbox detection, resize and hash of 64
@@ -97,6 +107,9 @@ N_NATIVE = 100_000  # rows of the 1M library searched by native_cpu
 N_NATIVE_REFS = 1_000  # references of native_cpu's windowed sweep
 FULL_LIST_TILES = 65_536  # least length of pack_full's hit list
 FULL_LIST_SAMPLE = 31  # 1 tile in 31 of it is held to the plain version
+RING_SHARDS = (4, 16)  # shards of the card in ring_1m: bands cross 1 and 2 blocks
+N_SCAN = 16_384  # hashes of ring_scan
+SCAN_TOL = 470  # ... at a tolerance where most rows have candidates
 # synthetic bars (top, bottom, left, right, grey level): letterbox,
 # pillarbox, windowbox, asymmetric and none, so the videos fall into
 # several crop buckets
@@ -498,6 +511,22 @@ def scale_8m_phase(dev, vdf, hc, hb) -> dict:
           band_launches=json.dumps(band_launches), band_kernel_ms=round(k4_ms, 2),
           band_bound_share=round(k4_bound_ms / k4_ms, 4))
 
+    # the same resident library through the ring on 4 shards of the card
+    from vid_dup_finder_lib_tpu_torch.parallel import ring_cuda
+
+    ring, ring_s, ring_peak, ring_launches = measured(
+        lambda: ring_cuda.banded_adjacency_ring(lib.packed, bounds, TOL_INT, mesh=card_mesh(dev, 4),
+                                                n=N_SCALE), counters, dev)
+    require(same_pairs(ring, pairs), f"ring_8m: {len(ring[0])} pairs, the slabbed sweep {len(pairs[0])}")
+    require(ring_launches["band_counts"] >= 4 and ring_launches["band_sweep"] == 0,
+            f"ring_8m: launches {ring_launches}")
+    ph = ring_cuda.LAST_RING_PHASES
+    phase("ring_8m", bound="exact", shards=4, pairs=len(ring[0]), seconds=round(ring_s, 3),
+          slabbed_sweep_s=round(sweep_s, 3), ratio=round(ring_s / sweep_s, 3), peak_bytes=ring_peak,
+          launches=json.dumps(ring_launches),
+          phases=json.dumps({k: round(v, 4) if isinstance(v, float) else v for k, v in ph.items()}))
+    del ring
+
     # (b) K2 and K3 on three sampled slabs against the plain versions: the
     # row tiles around the first, the middle and the last planted cluster,
     # at the search's tolerance and at a loose one (random pairs lie at
@@ -578,9 +607,139 @@ def scale_8m_phase(dev, vdf, hc, hb) -> dict:
           planted_found=len(got), seconds=round(refs_s, 3), peak_bytes=refs_peak,
           launches=json.dumps(refs_launches))
     return dict(slabs=len(slabs), ranges=len(ranges), sweep=sweep_launches, band=band_launches,
-                search=search_launches, refs=refs_launches, k2_ms=k2_ms, k2_bound_ms=k2_bound_ms,
+                search=search_launches, refs=refs_launches, ring=ring_launches, k2_ms=k2_ms, k2_bound_ms=k2_bound_ms,
                 k3_call_ms=k3_ms, hit_tiles=n_hits, k4_ms=k4_ms, k4_bound_ms=k4_bound_ms,
                 sweep_s=sweep_s, band_s=band_s, sweep_peak=sweep_peak, band_peak=band_peak)
+
+
+def card_mesh(dev, shards: int):
+    """``shards`` shards on the one card ``dev``: the ring's schedule, copies
+    between shards included, on a single GPU."""
+    from vid_dup_finder_lib_tpu_torch.parallel.mesh import Mesh
+
+    return Mesh([dev] * shards)
+
+
+def ring_phases(dev, vdf, hc, packed, bounds, pairs, hashes, groups) -> dict:
+    """``ring_1m``: the 1M library through ``banded_adjacency_ring`` on 4 and
+    on 16 shards of the card (bands across one block, and across two),
+    beside the single-card sweep from the same host matrix in this call;
+    over up to 4 distinct cards where the host has them; and the public
+    ``search(backend="ring")`` on its default mesh (every visible card).
+    Returns each run's K2/K3 launches."""
+    from vid_dup_finder_lib_tpu_torch.parallel import ring_cuda
+    from vid_dup_finder_lib_tpu_torch.parallel.mesh import Mesh, make_mesh
+
+    counters = (hc.band_counts, hc.band_pack)
+    single, single_s, single_peak, single_launches = measured(
+        lambda: hc.banded_adjacency_cuda(hc.SearchState(packed, bounds, dev), TOL_INT), counters, dev)
+    require(same_pairs(single, pairs), "ring_1m: the single-card sweep's pairs changed")
+    meshes = {f"{s}_shards": card_mesh(dev, s) for s in RING_SHARDS}
+    cards = torch.cuda.device_count()
+    if cards >= 2:
+        meshes["distinct_cards"] = Mesh([torch.device("cuda", i) for i in range(min(4, cards))])
+    launched = {}
+    for name, mesh in meshes.items():
+        got, seconds, peak, launches = measured(
+            lambda: ring_cuda.banded_adjacency_ring(packed, bounds, TOL_INT, mesh=mesh), counters, dev)
+        ph = dict(ring_cuda.LAST_RING_PHASES)
+        require(same_pairs(got, pairs), f"ring_1m ({name}): {len(got[0])} pairs, the single-card"
+                f" sweep {len(pairs[0])}")
+        require(launches["band_counts"] == ph["band_counts"] >= mesh.size and launches["band_pack"] > 0,
+                f"ring_1m ({name}): launches {launches}, phases {ph}")
+        require(name != "16_shards" or ph["k_max"] >= 2, f"ring_1m (16 shards): k_max {ph['k_max']}")
+        launched[name] = launches
+        phase(f"ring_1m_{name}", bound="exact", shards=mesh.size, pairs=len(got[0]),
+              capacity_ok=ring_cuda.ring_capacity_ok(len(packed), bounds, mesh.size, mesh=mesh),
+              seconds=round(seconds, 4), single_card_s=round(single_s, 4),
+              ratio=round(seconds / single_s, 3), peak_bytes=peak, single_card_peak_bytes=single_peak,
+              launches=json.dumps(launches), single_card_launches=json.dumps(single_launches),
+              phases=json.dumps({k: round(v, 4) if isinstance(v, float) else v for k, v in ph.items()}))
+    if "distinct_cards" not in meshes:
+        phase("ring_1m_distinct_cards", distinct_cards=repr("skipped: 1 card"))
+    ring_groups, seconds, peak, launches = measured(
+        lambda: vdf.search(hashes, TOLERANCE, backend="ring", device=dev), counters, dev)
+    require(ring_groups == groups, "search(backend='ring'): groups differ from backend='device'")
+    require(launches["band_counts"] > 0, f"search(backend='ring'): launches {launches}")
+    launched["search"] = launches
+    phase("ring_1m_search", groups=len(ring_groups), mesh=repr(make_mesh(device=dev)),
+          seconds=round(seconds, 4), peak_bytes=peak, launches=json.dumps(launches))
+    return launched
+
+
+def refs_sharded_phase(dev, vdf, hc, refs, cands, lo, hi, pairs, ref_hashes, cand_hashes,
+                       ref_groups) -> dict:
+    """``refs_sharded_10k_x_1m``: the refs phase's inputs with the references
+    split over 4 shards of the card, candidates replicated once per card;
+    then the public ``search_with_references`` with ``VDF_REFS_SHARDED=1``
+    (its default mesh).  Returns the K2/K3 launches of both."""
+    from vid_dup_finder_lib_tpu_torch.parallel.refs_sharded import refs_adjacency_sharded
+
+    counters = (hc.band_counts, hc.band_pack)
+    got, seconds, peak, launches = measured(
+        lambda: refs_adjacency_sharded(refs, lo, hi, TOL_INT, cands_packed=cands,
+                                       mesh=card_mesh(dev, 4)), counters, dev)
+    require(same_pairs(got, pairs), f"refs_sharded: {len(got[0])} pairs, one card {len(pairs[0])}")
+    require(launches["band_counts"] == 4 and launches["band_pack"] > 0, f"refs_sharded: {launches}")
+    os.environ["VDF_REFS_SHARDED"] = "1"
+    try:
+        public, public_s, public_peak, public_launches = measured(
+            lambda: vdf.search_with_references(ref_hashes, cand_hashes, TOLERANCE, device=dev),
+            counters, dev)
+    finally:
+        del os.environ["VDF_REFS_SHARDED"]
+    require(public == ref_groups and len(public) == N_REFS // REFS_PLANT_EVERY,
+            f"refs_sharded: the public search found {len(public)} groups")
+    require(public_launches["band_counts"] > 0, f"refs_sharded (public): {public_launches}")
+    phase("refs_sharded_10k_x_1m", bound="exact", shards=4, pairs=len(got[0]),
+          planted_found=len(public), seconds=round(seconds, 4), peak_bytes=peak,
+          launches=json.dumps(launches), public_seconds=round(public_s, 4),
+          public_launches=json.dumps(public_launches))
+    return {"shards": launches, "public": public_launches}
+
+
+def sharded_hash_phase(dev, hash_cubes, cubes, words) -> int:
+    """``sharded_hash``: the 65,536 cubes over 4 shards of the card, one K1
+    launch each, bit-equal to the single launch's hashes."""
+    from vid_dup_finder_lib_tpu_torch.parallel import sharded_hash_batch
+
+    got, seconds, _, launches = measured(
+        lambda: sharded_hash_batch(card_mesh(dev, 4), cubes), (hash_cubes,), dev)
+    require(np.array_equal(got, words.cpu().numpy().view(np.uint32)),
+            "sharded_hash: hashes differ from the single launch's")
+    require(launches["hash_cubes"] == 4, f"sharded_hash: launches {launches}")
+    phase("sharded_hash", bound="bit-exact", cubes=N_CUBES, shards=4, seconds=round(seconds, 4),
+          launches=json.dumps(launches))
+    return launches["hash_cubes"]
+
+
+def ring_scan_phase(dev, packed, durations) -> None:
+    """``ring_scan``: ``ring_candidate_scan`` over the first 16,384 hashes
+    of the 1M library on 4 shards of the card, at a tolerance loose enough
+    that most rows have candidates, held exactly to a NumPy XOR + popcount
+    over every row's window."""
+    from vid_dup_finder_lib_tpu_torch.parallel import ring_candidate_scan
+
+    p, d = packed[:N_SCAN], durations[:N_SCAN]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    counts_, best, idx = ring_candidate_scan(card_mesh(dev, 4), p, d, SCAN_TOL)
+    seconds = time.perf_counter() - t0
+    # the scan's window, its duration threshold in float32 as it takes it
+    hi = np.searchsorted(d, (d.astype(np.float32) * np.float32(1.1)).astype(np.int64), "right")
+    want = np.zeros(N_SCAN, np.int64), np.full(N_SCAN, 1001), np.full(N_SCAN, -1)
+    for i in range(N_SCAN):
+        dist = np.bitwise_count(p[i + 1 : hi[i]] ^ p[i]).sum(1)
+        ok = dist <= SCAN_TOL
+        if ok.any():
+            best_i = dist[ok].min()
+            want[0][i], want[1][i] = ok.sum(), best_i
+            want[2][i] = i + 1 + np.flatnonzero(ok & (dist == best_i))[0]
+    for name, a, b in zip(("counts", "best_dist", "best_idx"), (counts_, best, idx), want):
+        require(np.array_equal(a, b), f"ring_scan: {name} differs from NumPy's")
+    phase("ring_scan", bound="exact", hashes=N_SCAN, shards=4, tol=SCAN_TOL,
+          rows_with_candidates=int((counts_ > 0).sum()), candidates=int(counts_.sum()),
+          seconds=round(seconds, 4))
 
 
 def native_cpu_phase(dev, vdf, packed, durations, paths, starts, refs_case) -> None:
@@ -1114,6 +1273,13 @@ def main() -> int:
           pack_plain_ms=round(k3_refs_plain_ms, 3),
           launches=json.dumps(refs_launches))
 
+    # ---- the multi-device layer on shards of the card
+    ring_launches = ring_phases(dev, vdf, hc, packed, bounds, (pairs_i, pairs_j), hashes, groups)
+    refs_sharded_launches = refs_sharded_phase(dev, vdf, hc, refs, cands, lo, hi, (ri, rj),
+                                               ref_hashes, cand_hashes, ref_groups)
+    sharded_hash_launches = sharded_hash_phase(dev, hash_cubes, cubes, words)
+    ring_scan_phase(dev, packed, durations)
+
     # ---- library_1m: the same searches over a growing device-resident library
     two_phase = (hc.band_counts, hc.band_pack)
     lib_launches = {}
@@ -1263,7 +1429,7 @@ def main() -> int:
              library_ms=k1_library_ms, bound_share=k1_bound_ms / k1_ms,
              design_bound_ms=k1_design_bound_ms, collapsed_bound_ms=k1_collapsed_bound_ms,
              new_phase_launches={"device_preproc_1080p": preproc_launches,
-                                 "cli": cli["hash_cubes"]}),
+                                 "cli": cli["hash_cubes"], "sharded_hash": sharded_hash_launches}),
         dict(name="band_counts_kernel", route="cuda", source=csrc + "hamming_band.cu",
              replaces="vid_dup_finder_lib_tpu/ops/hamming_pallas.py:559",
              launches=launches["band_counts"], max_abs_err=k2_err,
@@ -1275,7 +1441,10 @@ def main() -> int:
              scale_8m_slabs=scale["slabs"],
              new_phase_launches={
                  **{f"library_1m_{k}": v["band_counts"] for k, v in lib_launches.items()},
-                 **{f"scale_8m_{k}": scale[k]["band_counts"] for k in ("sweep", "search", "refs")}}),
+                 **{f"scale_8m_{k}": scale[k]["band_counts"] for k in ("sweep", "search", "refs")},
+                 **{f"ring_1m_{k}": v["band_counts"] for k, v in ring_launches.items()},
+                 **{f"refs_sharded_10k_x_1m_{k}": v["band_counts"] for k, v in refs_sharded_launches.items()},
+                 "ring_8m": scale["ring"]["band_counts"]}),
         dict(name="band_pack_kernel", route="cuda", source=csrc + "hamming_band.cu",
              replaces="vid_dup_finder_lib_tpu/ops/hamming_pallas.py:130",
              launches=launches["band_pack"], max_abs_err=k3_err,
@@ -1292,7 +1461,10 @@ def main() -> int:
              scale_8m_call_ms=scale["k3_call_ms"], scale_8m_hit_tiles=scale["hit_tiles"],
              new_phase_launches={
                  **{f"library_1m_{k}": v["band_pack"] for k, v in lib_launches.items()},
-                 **{f"scale_8m_{k}": scale[k]["band_pack"] for k in ("sweep", "search", "refs")}}),
+                 **{f"scale_8m_{k}": scale[k]["band_pack"] for k in ("sweep", "search", "refs")},
+                 **{f"ring_1m_{k}": v["band_pack"] for k, v in ring_launches.items()},
+                 **{f"refs_sharded_10k_x_1m_{k}": v["band_pack"] for k, v in refs_sharded_launches.items()},
+                 "ring_8m": scale["ring"]["band_pack"]}),
         dict(name="band_sweep_kernel", route="cuda", source=csrc + "band_sweep.cu",
              replaces="vid_dup_finder_lib_tpu/ops/hamming_band.py:50",
              launches=band_launches["band_sweep"], max_abs_err=k4_err,

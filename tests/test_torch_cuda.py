@@ -718,3 +718,144 @@ def test_k3_rejects_a_bad_hit_list(dev):
         hc.band_pack(st, _band_tiles(st).long(), 350)
     with pytest.raises(ValueError):
         hc.band_pack(st, _band_tiles(st).T.contiguous(), 350)
+
+
+# -- the multi-device layer on shards of one card ------------------------------
+
+
+def _card_mesh(dev, shards):
+    from vid_dup_finder_lib_tpu_torch.parallel.mesh import Mesh
+
+    return Mesh([dev] * shards)
+
+
+@pytest.mark.parametrize("budget", [None, 64])
+@pytest.mark.parametrize("shards", [4, 16])
+def test_ring_on_shards_of_one_card_matches_the_single_card_sweep(dev, shards, budget):
+    """The zero and all-ones hashes at block edges, bands across one block
+    (4 shards) and two (16): K2 + K3 per (shard, step), from the host
+    matrix and from a resident buffer, equal to the one-state sweep."""
+    from tests.test_torch_parallel import guard_inputs
+    from vid_dup_finder_lib_tpu_torch.parallel import ring_cuda
+
+    packed, bounds = guard_inputs()
+    want = hc.banded_adjacency_cuda(hc.SearchState(packed, bounds, dev), 350)
+    assert len(want[0]) > 0
+    lib = IncrementalDeviceLibrary(dev, capacity=packed.shape[0])
+    lib.append(packed)
+    for source, n in ((packed, None), (lib.packed, lib.n)):
+        k2, k3 = hc.band_counts.launches, hc.band_pack.launches
+        got = ring_cuda.banded_adjacency_ring(source, bounds, 350, mesh=_card_mesh(dev, shards),
+                                              counts_budget=budget, n=n)
+        assert np.array_equal(got[0], want[0]) and np.array_equal(got[1], want[1])
+        ph = ring_cuda.LAST_RING_PHASES
+        assert ph["band_counts"] == hc.band_counts.launches - k2 >= shards
+        assert ph["band_pack"] == hc.band_pack.launches - k3 >= 1
+        assert ph["k_max"] == (1 if shards == 4 else 2) and ph["rotated_bytes"] > 0
+
+
+def test_refs_sharded_on_shards_of_one_card(dev):
+    """tests/test_refs_sharded.py's problem over four shards: candidates
+    uploaded, and resident (each shard then uses the buffer as it is)."""
+    from tests.test_refs_windowed import _refs_problem
+    from vid_dup_finder_lib_tpu_torch.parallel.refs_sharded import refs_adjacency_sharded
+
+    cands, refs, lo, hi = _refs_problem(np.random.default_rng(11))
+    want = hc.refs_adjacency_cuda(hc.RefsState(refs, cands, lo, hi, dev), 300)
+    assert len(want[0]) > 300
+    resident = hc._tiled(cands, dev)
+    for kw in (dict(cands_packed=cands), dict(cands_dev=resident, n_cands=cands.shape[0])):
+        k2 = hc.band_counts.launches
+        got = refs_adjacency_sharded(refs, lo, hi, 300, mesh=_card_mesh(dev, 4), **kw)
+        assert np.array_equal(got[0], want[0]) and np.array_equal(got[1], want[1])
+        # 333 references in shards of 128 rows: three shards hold some
+        assert hc.band_counts.launches - k2 == 3
+
+
+def test_sharded_hash_on_shards_of_one_card(dev):
+    """4,099 cubes over four shards: one K1 launch each, bit-equal to one
+    launch over the whole batch; fewer cubes than shards launch fewer."""
+    from vid_dup_finder_lib_tpu_torch.parallel import sharded_hash_batch
+
+    cubes = _cubes(4099, seed=8)
+    single = hk.hash_cubes(torch.from_numpy(cubes).to(dev)).cpu().numpy().view(np.uint32)
+    for batch, launched in ((cubes, 4), (cubes[:3], 3)):
+        before = hk.hash_cubes.launches
+        got = sharded_hash_batch(_card_mesh(dev, 4), torch.from_numpy(batch).to(dev))
+        assert hk.hash_cubes.launches - before == launched
+        assert np.array_equal(got, single[: batch.shape[0]])
+
+
+def test_ring_candidate_scan_on_shards_of_one_card(dev):
+    from tests.test_torch_parallel import scan_reference
+    from vid_dup_finder_lib_tpu_torch.parallel import ring_candidate_scan
+
+    rng = np.random.default_rng(9)
+    n = 1500
+    packed = rng.integers(0, 2**32, (n, 32), dtype=np.uint64).astype(np.uint32)
+    packed[:, -1] &= np.uint32(0xFF)
+    packed[1::7] = packed[::7][: len(packed[1::7])]
+    durs = np.sort(rng.integers(50, 400, n))
+    got = ring_candidate_scan(_card_mesh(dev, 4), packed, durs, 470)
+    for a, b in zip(got, scan_reference(packed, durs, 470)):
+        assert np.array_equal(a, b)
+
+
+# -- the multi-device layer over distinct cards ---------------------------------
+
+
+def _cards(dev):
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        pytest.skip(f"needs 2 cards, this host has {cards}")
+    return [torch.device("cuda", i) for i in range(min(4, cards))]
+
+
+@pytest.mark.parametrize("layout", ["distinct", "interleaved"])
+def test_ring_over_distinct_cards_matches_the_single_card_sweep(dev, layout):
+    """Each card's shards swept from a thread of its own, blocks copied
+    between cards: every card once, or two shards on each card in
+    alternation (8 shards, bands across up to two blocks)."""
+    from tests.test_torch_parallel import guard_inputs
+    from vid_dup_finder_lib_tpu_torch.parallel import ring_cuda
+    from vid_dup_finder_lib_tpu_torch.parallel.mesh import Mesh
+
+    cards = _cards(dev)
+    mesh = Mesh(cards if layout == "distinct" else cards * (8 // len(cards)))
+    packed, bounds = guard_inputs()
+    want = hc.banded_adjacency_cuda(hc.SearchState(packed, bounds, dev), 350)
+    for budget in (None, 64):
+        k2 = hc.band_counts.launches
+        got = ring_cuda.banded_adjacency_ring(packed, bounds, 350, mesh=mesh, counts_budget=budget)
+        assert np.array_equal(got[0], want[0]) and np.array_equal(got[1], want[1])
+        ph = ring_cuda.LAST_RING_PHASES
+        assert ph["band_counts"] == hc.band_counts.launches - k2 >= mesh.size
+        assert ph["rotated_bytes"] > 0
+
+
+def test_refs_sharded_hash_and_scan_over_distinct_cards(dev):
+    """The references split over every card (candidates uploaded to each,
+    or copied from a resident buffer), the sharded hash and the scan."""
+    from tests.test_refs_windowed import _refs_problem
+    from tests.test_torch_parallel import scan_reference
+    from vid_dup_finder_lib_tpu_torch.parallel import ring_candidate_scan, sharded_hash_batch
+    from vid_dup_finder_lib_tpu_torch.parallel.mesh import Mesh
+    from vid_dup_finder_lib_tpu_torch.parallel.refs_sharded import refs_adjacency_sharded
+
+    mesh = Mesh(_cards(dev))
+    cands, refs, lo, hi = _refs_problem(np.random.default_rng(11))
+    want = hc.refs_adjacency_cuda(hc.RefsState(refs, cands, lo, hi, dev), 300)
+    resident = hc._tiled(cands, mesh[0])
+    for kw in (dict(cands_packed=cands), dict(cands_dev=resident, n_cands=cands.shape[0])):
+        got = refs_adjacency_sharded(refs, lo, hi, 300, mesh=mesh, **kw)
+        assert np.array_equal(got[0], want[0]) and np.array_equal(got[1], want[1])
+    cubes = _cubes(4099, seed=8)
+    single = hk.hash_cubes(torch.from_numpy(cubes).to(dev)).cpu().numpy().view(np.uint32)
+    assert np.array_equal(sharded_hash_batch(mesh, cubes), single)
+    rng = np.random.default_rng(9)
+    packed = rng.integers(0, 2**32, (1500, 32), dtype=np.uint64).astype(np.uint32)
+    packed[:, -1] &= np.uint32(0xFF)
+    packed[1::7] = packed[::7][: len(packed[1::7])]
+    durs = np.sort(rng.integers(50, 400, 1500))
+    for a, b in zip(ring_candidate_scan(mesh, packed, durs, 470), scan_reference(packed, durs, 470)):
+        assert np.array_equal(a, b)

@@ -86,11 +86,16 @@ def test_port_runs_with_jax_unimportable():
 
 def test_port_sources_never_import_jax():
     pattern = re.compile(r"^\s*(import jax|from jax)\b", re.M)
+    scanned = []
     for root, _, files in os.walk(PORT):
         for f in files:
             if f.endswith(".py"):
+                scanned.append(os.path.relpath(os.path.join(root, f), PORT))
                 with open(os.path.join(root, f)) as fh:
                     assert not pattern.search(fh.read()), f
+    # the multi-device layer is among them
+    assert {"parallel/mesh.py", "parallel/ring_cuda.py", "parallel/refs_sharded.py",
+            "parallel/sharded_search.py"} <= set(scanned)
 
 
 _JAX_PACKAGE_IMPORT = re.compile(
@@ -595,23 +600,30 @@ def test_every_relative_import_in_the_port_has_a_target():
 def test_every_jax_package_host_module_has_a_counterpart():
     """The JAX package's modules that import neither jax nor its Pallas or
     mesh code each have a file of the same name in the port, apart from
-    those the port replaces under another design."""
+    those the port replaces under another design; so does every module of
+    its multi-device layer (``parallel/``), the ring under the name of the
+    port's kernels (``ring_pallas.py`` -> ``ring_cuda.py``)."""
     jax_root = os.path.join(REPO, "vid_dup_finder_lib_tpu")
     replaced = {"utils/jaxconfig.py", "__main__.py"}
+    renamed = {"parallel/ring_pallas.py": "parallel/ring_cuda.py"}
     device_code = re.compile(r"^\s*(import|from)\s+(jax|\.+(parallel|native|ops\.hamming_pallas"
                              r"|ops\.hash_pallas|utils\.jaxconfig))\b", re.M)
-    absent = []
+    absent, parallel = [], []
     for root, _, files in os.walk(jax_root):
         for f in files:
             rel = os.path.relpath(os.path.join(root, f), jax_root)
-            if not f.endswith(".py") or rel in replaced or rel.startswith("parallel"):
+            if not f.endswith(".py") or rel in replaced:
                 continue
-            with open(os.path.join(root, f), encoding="utf-8") as fh:
-                if device_code.search(fh.read()):
-                    continue
-            if not os.path.isfile(os.path.join(PORT, rel)):
+            if rel.startswith("parallel"):
+                parallel.append(rel)
+            else:
+                with open(os.path.join(root, f), encoding="utf-8") as fh:
+                    if device_code.search(fh.read()):
+                        continue
+            if not os.path.isfile(os.path.join(PORT, renamed.get(rel, rel))):
                 absent.append(rel)
     assert absent == []
+    assert len(parallel) == 5
 
 
 def _same_source_after_the_docstring(rel):

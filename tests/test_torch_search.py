@@ -183,7 +183,7 @@ def test_public_surface_matches_jax_package():
 # -- VDF_SEARCH_BACKEND: the backend of search(backend="auto") ----------------
 
 
-@pytest.mark.parametrize("named", ["device", "band", "host", "native", "naive", "auto"])
+@pytest.mark.parametrize("named", ["device", "band", "host", "native", "ring", "naive", "auto"])
 def test_env_names_the_backend_of_auto(monkeypatch, named):
     """``search(backend="auto")`` runs the backend that VDF_SEARCH_BACKEND
     names; an explicit backend is not overridden."""
@@ -207,7 +207,7 @@ def test_env_names_the_backend_of_auto(monkeypatch, named):
     assert seen[-1] == "auto"
 
 
-@pytest.mark.parametrize("named", ["pallas", "ring", "", "Device"])
+@pytest.mark.parametrize("named", ["pallas", "pallas_split", "", "Device"])
 def test_env_naming_a_backend_the_port_lacks_raises(monkeypatch, named):
     hashes, _, _ = _planted_library(40, 2, seed=18)
     monkeypatch.setenv("VDF_SEARCH_BACKEND", named)

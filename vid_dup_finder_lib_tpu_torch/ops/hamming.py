@@ -13,6 +13,12 @@ Backends of :func:`banded_adjacency`:
   CPU.
 * ``"band"``: the whole-band sweep of :mod:`.hamming_band` (K4) on
   ``device``, the same way.
+* ``"ring"``: the two-phase sweep over the shards of
+  ``parallel.mesh.make_mesh(device=device)`` (:mod:`..parallel.ring_cuda`):
+  every visible card, or one CPU shard.  Only when asked for: ``auto``
+  never takes it.  (The JAX package's ``auto`` does on several chips from
+  a size set for TPU chips, ``ops/hamming.py:466-499``; the port sets no
+  such size before it has measured one across cards.)
 * ``"auto"``: on a CUDA device the two-phase sweep; on the CPU the native
   sweep when its library is available, else the two-phase sweep's plain
   versions (the JAX package's choice on a host without an accelerator,
@@ -38,7 +44,7 @@ from .hamming_cuda import (
     refs_adjacency_cuda,
 )
 
-BACKENDS = ("auto", "device", "host", "band", "native")
+BACKENDS = ("auto", "device", "host", "band", "native", "ring")
 
 _BIT_SHIFTS = np.arange(32, dtype=np.uint32)
 
@@ -116,6 +122,12 @@ def banded_adjacency(
             )
         return _banded_adjacency_native(packed, bounds, tolerance_int)
     dev = resolve_device(device)
+    if backend == "ring":
+        # imported here: a process that never asks for the ring loads none of it
+        from ..parallel.mesh import make_mesh
+        from ..parallel.ring_cuda import banded_adjacency_ring
+
+        return banded_adjacency_ring(packed, bounds, tolerance_int, mesh=make_mesh(device=dev))
     if backend == "auto" and dev.type == "cpu" and native.available():
         return _banded_adjacency_native(packed, bounds, tolerance_int)
     return banded_adjacency_cuda(SearchState(packed, bounds, dev), tolerance_int)

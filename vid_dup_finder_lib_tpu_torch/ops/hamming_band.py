@@ -122,17 +122,18 @@ def band_sweep(
         return counts, words
     offs = tile_offsets(state, rt0, rt1)
     lib = cuda_build.load_library()
-    err = lib.vdf_band_sweep(
-        cuda_build.ptr(state.packed, "packed"),
-        cuda_build.ptr(state.bounds, "bounds"),
-        cuda_build.ptr(state.first_ct_dev, "first_ct"),
-        cuda_build.ptr(state.n_ct_dev, "n_ct"),
-        cuda_build.ptr(offs, "tile_off"),
-        cuda_build.ptr(counts, "counts"),
-        cuda_build.ptr(words, "words"),
-        rt1 - rt0, rt0, state.slots, state.n, _clamp_tol(tol),
-        cuda_build.current_stream(dev),
-    )
+    with torch.cuda.device(dev):
+        err = lib.vdf_band_sweep(
+            cuda_build.ptr(state.packed, "packed"),
+            cuda_build.ptr(state.bounds, "bounds"),
+            cuda_build.ptr(state.first_ct_dev, "first_ct"),
+            cuda_build.ptr(state.n_ct_dev, "n_ct"),
+            cuda_build.ptr(offs, "tile_off"),
+            cuda_build.ptr(counts, "counts"),
+            cuda_build.ptr(words, "words"),
+            rt1 - rt0, rt0, state.slots, state.n, _clamp_tol(tol),
+            cuda_build.current_stream(dev),
+        )
     cuda_build.check(err, "band_sweep_kernel")
     band_sweep.launches += 1
     return counts, words

@@ -43,6 +43,8 @@ every partial sum is an integer of magnitude <= 1024).
 
 from __future__ import annotations
 
+import threading
+
 import numpy as np
 import torch
 
@@ -222,22 +224,23 @@ class RefsState:
 
     ``cands`` is a host uint32[n, 32] matrix or a resident int32[>= n_pad,
     32] tensor on ``device`` with ``n_cands`` rows first (then only the
-    references travel host to device).
+    references travel host to device); ``refs`` likewise, with ``n_refs``
+    rows (the ring's steps sweep one resident block against another).
     """
 
     def __init__(
         self,
-        refs_u32: np.ndarray,
+        refs: np.ndarray | torch.Tensor,
         cands: np.ndarray | torch.Tensor,
         lo: np.ndarray,
         hi: np.ndarray,
         device: torch.device,
         n_cands: int | None = None,
+        n_refs: int | None = None,
     ) -> None:
         self.device = torch.device(device)
-        refs_u32 = _packed_rows(refs_u32, "refs_packed")
+        self.rows, r = _matrix(refs, n_refs, self.device, "refs_packed")
         self.cols, n = _matrix(cands, n_cands, self.device, "cands_packed")
-        r = refs_u32.shape[0]
         lo = np.asarray(lo, dtype=np.int64)
         hi = np.asarray(hi, dtype=np.int64)
         if lo.shape != (r,) or hi.shape != (r,):
@@ -259,7 +262,6 @@ class RefsState:
         )
         self.slots = int(self.n_ct.max()) if r and n else 0
 
-        self.rows = _tiled(refs_u32, self.device)
         self.row_lo = torch.from_numpy(row_lo.astype(np.int32)).to(self.device)
         self.bounds = torch.from_numpy(bounds.astype(np.int32)).to(self.device)
         self.first_ct_dev = torch.from_numpy(
@@ -535,19 +537,21 @@ def band_counts(
     if counts.numel() == 0:
         return counts
     lib = cuda_build.load_library()
-    err = lib.vdf_band_counts(
-        cuda_build.ptr(state.rows, "rows"),
-        cuda_build.ptr(state.cols, "cols"),
-        cuda_build.ptr(state.bounds, "bounds"),
-        _row_lo_ptr(state),
-        cuda_build.ptr(state.first_ct_dev, "first_ct"),
-        cuda_build.ptr(state.n_ct_dev, "n_ct"),
-        cuda_build.ptr(counts, "counts"),
-        rt1 - rt0, rt0, slots, state.n, _clamp_tol(tol),
-        cuda_build.current_stream(state.device),
-    )
+    with torch.cuda.device(state.device):
+        err = lib.vdf_band_counts(
+            cuda_build.ptr(state.rows, "rows"),
+            cuda_build.ptr(state.cols, "cols"),
+            cuda_build.ptr(state.bounds, "bounds"),
+            _row_lo_ptr(state),
+            cuda_build.ptr(state.first_ct_dev, "first_ct"),
+            cuda_build.ptr(state.n_ct_dev, "n_ct"),
+            cuda_build.ptr(counts, "counts"),
+            rt1 - rt0, rt0, slots, state.n, _clamp_tol(tol),
+            cuda_build.current_stream(state.device),
+        )
     cuda_build.check(err, "band_counts_kernel")
-    band_counts.launches += 1
+    with _LAUNCHES_LOCK:  # the ring's shards on distinct cards launch from threads
+        band_counts.launches += 1
     return counts
 
 
@@ -579,26 +583,29 @@ def band_pack(state: SweepState, hits: torch.Tensor, tol: int) -> torch.Tensor:
     if hits.shape[0] == 0:
         return words
     lib = cuda_build.load_library()
-    err = lib.vdf_band_pack(
-        cuda_build.ptr(state.rows, "rows"),
-        cuda_build.ptr(state.cols, "cols"),
-        cuda_build.ptr(state.bounds, "bounds"),
-        _row_lo_ptr(state),
-        cuda_build.ptr(hits, "hits"),
-        cuda_build.ptr(words, "words"),
-        hits.shape[0],
-        pack_chunk(
+    with torch.cuda.device(state.device):
+        err = lib.vdf_band_pack(
+            cuda_build.ptr(state.rows, "rows"),
+            cuda_build.ptr(state.cols, "cols"),
+            cuda_build.ptr(state.bounds, "bounds"),
+            _row_lo_ptr(state),
+            cuda_build.ptr(hits, "hits"),
+            cuda_build.ptr(words, "words"),
             hits.shape[0],
-            torch.cuda.get_device_properties(state.device).multi_processor_count,
-        ),
-        state.n, _clamp_tol(tol),
-        cuda_build.current_stream(state.device),
-    )
+            pack_chunk(
+                hits.shape[0],
+                torch.cuda.get_device_properties(state.device).multi_processor_count,
+            ),
+            state.n, _clamp_tol(tol),
+            cuda_build.current_stream(state.device),
+        )
     cuda_build.check(err, "band_pack_kernel")
-    band_pack.launches += 1
+    with _LAUNCHES_LOCK:  # the ring's shards on distinct cards launch from threads
+        band_pack.launches += 1
     return words
 
 
+_LAUNCHES_LOCK = threading.Lock()
 band_counts.launches = 0  # kernel launches (CUDA path only)
 band_pack.launches = 0
 

@@ -204,11 +204,12 @@ def hash_cubes(
     if out.shape[0] == 0:
         return out
     lib = cuda_build.load_library()
-    err = lib.vdf_hash_dct(
-        cuda_build.ptr(cubes_u8, "cubes"), cuda_build.ptr(factor, "dct"),
-        cuda_build.ptr(out, "out"), cubes_u8.shape[0],
-        cuda_build.current_stream(cubes_u8.device),
-    )
+    with torch.cuda.device(cubes_u8.device):
+        err = lib.vdf_hash_dct(
+            cuda_build.ptr(cubes_u8, "cubes"), cuda_build.ptr(factor, "dct"),
+            cuda_build.ptr(out, "out"), cubes_u8.shape[0],
+            cuda_build.current_stream(cubes_u8.device),
+        )
     cuda_build.check(err, "hash_dct_kernel")
     hash_cubes.launches += 1
     return out

@@ -32,6 +32,10 @@ Backends of ``search``:
 * ``"native"``: the adjacency from the C++ XOR + POPCNT sweep on the host's
   cores (:mod:`.native`) at any size; raises when it cannot be built;
 * ``"band"``: the whole-band adjacency (K4) on ``device`` at any size;
+* ``"ring"``: the two-phase adjacency over the shards of
+  ``parallel.mesh.make_mesh(device=device)`` (every visible card, or one CPU
+  shard; :mod:`.parallel.ring_cuda`) at any size, from the host matrix also
+  when a library is attached, as in the JAX package; ``auto`` never takes it;
 * ``"host"``: the adjacency from the NumPy sweep
   (:func:`.ops.hamming.banded_adjacency_host`);
 * ``"naive"``: the pairwise loop at any size.
@@ -44,7 +48,10 @@ any size; ``host``, ``native`` and ``naive`` keep to the host.
 
 A Search on the CPU without a resident library also takes the native
 library for the batched references search (unless ``VDF_REFS_NATIVE=0``);
-one on a CUDA device never sweeps with it.  ``search_one`` measures its
+one on a CUDA device never sweeps with it.  The batched references search
+splits the references over ``make_mesh(device=device)``
+(:func:`.parallel.refs_sharded.refs_adjacency_sharded`) only when
+``VDF_REFS_SHARDED=1``.  ``search_one`` measures its
 distances with it on any host that can build it, as in the JAX package.
 """
 
@@ -71,7 +78,7 @@ from .ops.hamming_cuda import IncrementalDeviceLibrary, banded_adjacency_cuda
 from .utils.device import resolve_device
 from .video_hash import VideoHash, VideoHashBatch, hashes_to_matrix
 
-BACKENDS = ("auto", "device", "band", "host", "native", "naive")
+BACKENDS = ("auto", "device", "band", "host", "native", "ring", "naive")
 
 # auto backend: the device adjacency from this many entries up
 _DEVICE_SEARCH_THRESHOLD = 4096
@@ -246,7 +253,7 @@ class Search:
         tol = _tolerance_int(tolerance)
 
         use_adjacency = backend != "naive" and (
-            backend in ("device", "host", "band", "native")
+            backend in ("device", "host", "band", "native", "ring")
             or n >= _DEVICE_SEARCH_THRESHOLD
             or self._library is not None
         )
@@ -335,7 +342,10 @@ class Search:
         (video_dup_finder.rs:19-46): the references, sorted by duration,
         are swept against their [0.95d, 1.05d] windows in one
         :func:`.ops.hamming.refs_adjacency` on the Search's device, over
-        the attached library's rows when there is one.  A Search on the CPU
+        the attached library's rows when there is one, or split over the
+        shards of ``make_mesh(device=self.device)``
+        (:func:`.parallel.refs_sharded.refs_adjacency_sharded`) when
+        ``VDF_REFS_SHARDED=1``.  Otherwise a Search on the CPU
         without a library runs each window through
         :func:`.native.refs_windowed_native` instead when that is available
         and ``VDF_REFS_NATIVE`` is not ``0``.  Candidates already
@@ -352,7 +362,22 @@ class Search:
         )
         ref_mat = hashes_to_matrix([refs[k] for k in order])
         cands = self._ensure_cands_dev()
-        if (
+        if os.environ.get("VDF_REFS_SHARDED") == "1":
+            # imported here: a process that never shards loads none of it
+            from .parallel.mesh import make_mesh
+            from .parallel.refs_sharded import refs_adjacency_sharded
+
+            pi, pj = refs_adjacency_sharded(
+                ref_mat,
+                windows[:, 0],
+                windows[:, 1],
+                tol,
+                cands_packed=self._packed_matrix() if cands is None else None,
+                cands_dev=cands,
+                n_cands=len(self.entries),
+                mesh=make_mesh(device=self.device),
+            )
+        elif (
             cands is None
             and self.device.type == "cpu"
             and os.environ.get("VDF_REFS_NATIVE", "1") != "0"
