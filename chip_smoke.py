@@ -51,6 +51,20 @@ with the launches queued behind a long kernel (``queued_ms``); the time of
 one call between two events is kept as ``call_ms``.  Any mismatch raises
 and the script exits non-zero.  It refuses to run without CUDA.
 
+The public calls' host work is broken down on their phase lines: the warm
+1M ``search()`` (``main_path``), the shuffled and the sorted resident
+library (``library_1m_a`` / ``_b``) and the 8M one (``scale_8m_c``) by the
+search's steps (``steps_s``: the Search, the attach, the bounds, the sweep
+state and its h2d, the sweep, the decode and d2h, the CSR, the greedy
+replay, the MatchGroups), the 10k references (``refs_10k_x_1m``,
+``scale_8m_d``) by theirs (the windows, the reference matrix, the state's
+h2d, the sweep, the result loop), each step called on its own with the
+card synchronised around it (:func:`search_steps`, :func:`refs_steps`);
+the 8M objects apart from their path strings; the first search's
+adjacency apart from the rest of it; and the cyclic GC's seconds inside
+each (``*gc_s``, :class:`GcClock`), also in ``sharded_hash`` and
+``device_preproc_1080p`` (with each batch's upload alone, ``upload_s``).
+
 Output: one progress line per phase; then a JSON line with each kernel's
 launch count in its path's run (and in each later phase that launches it,
 ``new_phase_launches``), its largest disagreement with the plain
@@ -67,6 +81,8 @@ limit from nvidia-smi; last, ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import contextlib
+import gc
+import importlib
 import io
 import json
 import multiprocessing
@@ -397,19 +413,177 @@ def counts(counters) -> dict:
     return {fn.__name__: fn.launches for fn in counters}
 
 
+class GcClock:
+    """Seconds Python's cyclic GC spent collecting since :meth:`start`
+    (``gc.callbacks``, as ``tools/torch_first_search.py`` counts them);
+    ``last`` holds those inside the latest :func:`measured` call."""
+
+    def __init__(self) -> None:
+        self.seconds = 0.0
+        self.last = 0.0
+        self._t0 = 0.0
+
+    def start(self) -> None:
+        gc.callbacks.append(self._callback)
+
+    def _callback(self, when: str, info: dict) -> None:
+        if when == "start":
+            self._t0 = time.perf_counter()
+        else:
+            self.seconds += time.perf_counter() - self._t0
+
+
+GC = GcClock()
+
+
 def measured(fn, counters, dev):
     """``fn()`` with the launch counts at 0 before it: its result, wall
     seconds (synchronised), peak device memory above what was allocated
-    before it, and the launches."""
+    before it, and the launches; the GC seconds inside it in ``GC.last``."""
     reset(counters)
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated(dev)
     torch.cuda.reset_peak_memory_stats(dev)
+    g0 = GC.seconds
     t0 = time.perf_counter()
     out = fn()
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
+    GC.last = GC.seconds - g0
     return out, seconds, torch.cuda.max_memory_allocated(dev) - base, counts(counters)
+
+
+class Steps:
+    """The host breakdown of one public call: the call's own steps, called
+    one by one from outside, each timed by the host clock with the card
+    synchronised before and after it, and the GC seconds inside each."""
+
+    def __init__(self) -> None:
+        self.seconds: dict[str, float] = {}
+        self.gc: dict[str, float] = {}
+
+    def __call__(self, name: str, fn):
+        torch.cuda.synchronize()
+        g0 = GC.seconds
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        self.seconds[name] = time.perf_counter() - t0
+        self.gc[name] = GC.seconds - g0
+        return out
+
+    def fields(self, prefix: str = "steps") -> dict:
+        """Phase-line fields: the steps' seconds, their sum and their GC."""
+        return {f"{prefix}_s": json.dumps({k: round(v, 4) for k, v in self.seconds.items()}),
+                f"{prefix}_total_s": round(sum(self.seconds.values()), 4),
+                f"{prefix}_gc_s": json.dumps({k: round(v, 4) for k, v in self.gc.items() if v})}
+
+
+def sweep_words(hc, state, tol: int) -> list:
+    """The two-phase sweep without its decode (``hamming_cuda._two_phase``):
+    per slab with a band, K2, the hit list and K3; (hits, words) per slab
+    with a hit."""
+    out = []
+    for rt0, rt1 in hc.count_slabs(state):
+        if not state.n_ct[rt0:rt1].any():
+            continue
+        hits = hc.hit_tiles(state, hc.band_counts(state, tol, rt0, rt1), rt0)
+        if hits.shape[0]:
+            out.append((hits, hc.band_pack(state, hits, tol)))
+    return out
+
+
+def decode_pairs(hc, state, words) -> tuple[np.ndarray, np.ndarray]:
+    """The rest of ``_two_phase``: the words decoded on the card, the pairs
+    of every slab fetched to the host."""
+    pairs = [hc.decode_words(state, h, w) for h, w in words]
+    if not pairs:
+        return np.zeros(0, np.int64), np.zeros(0, np.int64)
+    ii, jj = (torch.cat(p).cpu().numpy() for p in zip(*pairs))
+    return ii, jj
+
+
+def search_steps(hc, hashes, dev, lib=None, lib_paths=None):
+    """The public ``search(hashes, TOLERANCE, device=dev[, device_library=lib,
+    library_paths=lib_paths])`` step by step (:class:`Steps`): the Search,
+    the attach, the bounds, the sweep state (its h2d, or the resident rows),
+    the sweep, the decode and d2h, the CSR, the greedy replay and the
+    MatchGroups.  Returns (groups, steps)."""
+    sm = importlib.import_module("vid_dup_finder_lib_tpu_torch.search")  # the package's `search` is the function
+
+    st = Steps()
+    s = st("construct", lambda: sm.Search(hashes, device=dev))
+    if lib is not None:
+        st("attach", lambda: s.attach_device_library(lib, lib_paths))
+    bounds = st("bounds", s._self_search_bounds)
+    state = st("state_h2d", lambda: hc.SearchState(s._packed_matrix(), bounds, s.device) if lib is None
+               else lib.state(s._library_order, bounds))
+    words = st("sweep", lambda: sweep_words(hc, state, TOL_INT))
+    ii, jj = st("decode_d2h", lambda: decode_pairs(hc, state, words))
+    del state, words
+    off = st("csr", lambda: s._adjacency_offsets(ii, len(s.entries)) if hasattr(s, "_adjacency_offsets")
+             else np.searchsorted(ii, np.arange(len(s.entries) + 1)))  # a tree before the bincount
+    s._adj_j, s._adj_off, s._tol_of_adjacency = jj, off, TOL_INT
+    matches = st("replay", lambda: s.search_self(TOLERANCE))
+    return st("groups", lambda: sm._groups(matches)), st
+
+
+def reference_windows(s, refs):
+    """(order, lo, hi): the references' duration order and the sorted
+    references' candidate windows, as the tree's batched references search
+    computes them (a tree without ``Search._reference_windows`` calls
+    ``_duration_slice`` once per reference)."""
+    if hasattr(s, "_reference_windows"):
+        return s._reference_windows(refs)
+    order = sorted(range(len(refs)), key=lambda k: refs[k].duration)
+    windows = np.array([s._duration_slice(refs[k].duration) for k in order], np.int64)
+    return order, windows[:, 0], windows[:, 1]
+
+
+def reference_matrix(s, refs, order):
+    """The sorted references' packed rows, as the tree builds them."""
+    if hasattr(s, "_reference_matrix"):
+        return s._reference_matrix(refs, order)
+    from vid_dup_finder_lib_tpu_torch.video_hash import hashes_to_matrix
+
+    return hashes_to_matrix([refs[k] for k in order])
+
+
+def refs_steps(hc, ref_hashes, cand_hashes, dev, lib=None):
+    """The public ``search_with_references(ref_hashes, cand_hashes,
+    TOLERANCE, device=dev[, device_library=lib])`` step by step
+    (:class:`Steps`): the Search (and the attach), the windows, the
+    reference matrix, the sweep state (the h2d of both matrices, or of the
+    references beside the resident rows), the sweep, the decode and d2h,
+    the result loop and the MatchGroups.  Returns (groups, steps)."""
+    sm = importlib.import_module("vid_dup_finder_lib_tpu_torch.search")  # the package's `search` is the function
+    from vid_dup_finder_lib_tpu_torch.match_group import MatchGroup
+
+    st = Steps()
+    s = st("construct", lambda: sm.Search(cand_hashes, device=dev))
+    if lib is not None:
+        st("attach", lambda: s.attach_device_library(lib, None))
+    order, lo, hi = st("windows", lambda: reference_windows(s, ref_hashes))
+    ref_mat = st("ref_matrix", lambda: reference_matrix(s, ref_hashes, order))
+    cands = st("cands", s._ensure_cands_dev)
+    state = st("state_h2d", lambda: hc.RefsState(
+        ref_mat, s._packed_matrix() if cands is None else cands, lo, hi, s.device,
+        n_cands=len(s.entries)))
+    words = st("sweep", lambda: sweep_words(hc, state, TOL_INT))
+    pi, pj = st("decode_d2h", lambda: decode_pairs(hc, state, words))
+    del state, words
+
+    def result_loop():
+        keep = ~s.matched[pj]
+        results = [[] for _ in ref_hashes]
+        for i, j in zip(pi[keep].tolist(), pj[keep].tolist()):
+            results[order[i]].append(s.entries[j].src_path)
+        return results
+
+    results = st("result_loop", result_loop)
+    groups = st("groups", lambda: [MatchGroup.new_with_reference(r.src_path, m)
+                                   for r, m in zip(ref_hashes, results) if m])
+    return groups, st
 
 
 def same_pairs(a, b) -> bool:
@@ -560,20 +734,30 @@ def scale_8m_phase(dev, vdf, hc, hb) -> dict:
     phase("scale_8m_b", bound=f"exact at {TOL_INT} and {SAMPLE_TOL_LOOSE}", sampled=json.dumps(sampled))
 
     # (c) the public search over the resident, sorted library
-    t0 = time.perf_counter()
+    g0, t0 = GC.seconds, time.perf_counter()
     paths = [f"s{i:07d}" for i in range(N_SCALE)]
+    paths_s, paths_gc_s = time.perf_counter() - t0, GC.seconds - g0
+    g0, t0 = GC.seconds, time.perf_counter()
     hashes = vdf.VideoHash.many_from_packed_u32(packed, paths, durations)
-    objects_s = time.perf_counter() - t0
+    objects_s, objects_gc_s = time.perf_counter() - t0, GC.seconds - g0
+    g0 = GC.seconds
     planted = {frozenset(paths[s + k] for k in range(CLUSTER_SIZE)) for s in starts}
+    between_gc_s = GC.seconds - g0  # collections the new objects brought on before the search
     groups, search_s, search_peak, search_launches = measured(
         lambda: vdf.search(hashes, TOLERANCE, device_library=lib, device=dev), counters, dev)
+    search_gc_s = GC.last
+    stepped, c_steps = search_steps(hc, hashes, dev, lib)
+    require(stepped == groups, "scale_8m: the stepwise search gave other groups")
     found = groups_as_sets(groups)
     require(found == planted, f"scale_8m: search found {len(found & planted)} of"
             f" {len(planted)} planted groups ({len(found)} found)")
     require(search_launches["band_counts"] == with_band and search_launches["band_sweep"] == 0,
             f"scale_8m: search launches {search_launches}")
     phase("scale_8m_c", groups=len(groups), planted_found=len(found & planted),
-          objects_s=round(objects_s, 2), search_s=round(search_s, 3),
+          paths_s=round(paths_s, 3), paths_gc_s=round(paths_gc_s, 3),
+          objects_s=round(objects_s, 3), objects_gc_s=round(objects_gc_s, 3),
+          after_objects_gc_s=round(between_gc_s, 3),
+          search_s=round(search_s, 3), search_gc_s=round(search_gc_s, 4), **c_steps.fields(),
           sweep_s=round(sweep_s, 3), host_s=round(search_s - sweep_s, 3),
           peak_bytes=search_peak, launches=json.dumps(search_launches))
 
@@ -597,6 +781,9 @@ def scale_8m_phase(dev, vdf, hc, hb) -> dict:
     ref_groups, refs_s, refs_peak, refs_launches = measured(
         lambda: vdf.search_with_references(ref_hashes, hashes, TOLERANCE, device_library=lib,
                                            device=dev), counters, dev)
+    refs_gc_s = GC.last
+    stepped, d_steps = refs_steps(hc, ref_hashes, hashes, dev, lib)
+    require(stepped == ref_groups, "scale_8m: the stepwise refs search gave other groups")
     got = {g.reference: set(g.duplicates) for g in ref_groups}
     require(len(plants) == N_REFS // REFS_PLANT_EVERY and got == plants,
             f"scale_8m: refs search found {sum(got.get(k) == v for k, v in plants.items())}"
@@ -604,7 +791,8 @@ def scale_8m_phase(dev, vdf, hc, hb) -> dict:
     require(refs_launches["band_counts"] > 0 and refs_launches["band_pack"] > 0,
             f"scale_8m: refs launches {refs_launches}")
     phase("scale_8m_d", refs=N_REFS, candidates=N_SCALE, comparisons=int(np.sum(hi - lo)),
-          planted_found=len(got), seconds=round(refs_s, 3), peak_bytes=refs_peak,
+          planted_found=len(got), seconds=round(refs_s, 3), gc_s=round(refs_gc_s, 4),
+          **d_steps.fields(), peak_bytes=refs_peak,
           launches=json.dumps(refs_launches))
     return dict(slabs=len(slabs), ranges=len(ranges), sweep=sweep_launches, band=band_launches,
                 search=search_launches, refs=refs_launches, ring=ring_launches, k2_ms=k2_ms, k2_bound_ms=k2_bound_ms,
@@ -705,10 +893,18 @@ def sharded_hash_phase(dev, hash_cubes, cubes, words) -> int:
 
     got, seconds, _, launches = measured(
         lambda: sharded_hash_batch(card_mesh(dev, 4), cubes), (hash_cubes,), dev)
+    gc_s = GC.last
     require(np.array_equal(got, words.cpu().numpy().view(np.uint32)),
             "sharded_hash: hashes differ from the single launch's")
     require(launches["hash_cubes"] == 4, f"sharded_hash: launches {launches}")
+    # the same cubes from host memory: each shard's part goes up on its own
+    host_cubes = cubes.cpu().numpy()
+    host_got, host_s, _, host_launches = measured(
+        lambda: sharded_hash_batch(card_mesh(dev, 4), host_cubes), (hash_cubes,), dev)
+    require(np.array_equal(host_got, got), "sharded_hash: host cubes hash otherwise")
+    require(host_launches["hash_cubes"] == 4, f"sharded_hash (host): launches {host_launches}")
     phase("sharded_hash", bound="bit-exact", cubes=N_CUBES, shards=4, seconds=round(seconds, 4),
+          gc_s=round(gc_s, 4), from_host_s=round(host_s, 4), from_host_gc_s=round(GC.last, 4),
           launches=json.dumps(launches))
     return launches["hash_cubes"]
 
@@ -805,6 +1001,7 @@ def device_preproc_phase(dev, hash_cubes) -> int:
     uploaded batch; crops held to the host detector for every video, cubes
     and hashes to the golden model for the first four.  Returns the hash
     kernel's launches in the public calls."""
+    from vid_dup_finder_lib_tpu_torch.models import pipeline
     from vid_dup_finder_lib_tpu_torch.models.pipeline import (
         DEFAULT_PREPROC_BATCH_BYTES,
         hash_raw_frames_device,
@@ -817,16 +1014,26 @@ def device_preproc_phase(dev, hash_cubes) -> int:
     batches = preproc_batches(DEFAULT_PREPROC_BATCH_BYTES)
     crops, words, golden_candidates = {}, {}, {}
     stage_ms = {"h2d": [], "letterbox": [], "resize": [], "hash": []}
-    public_s, launched = 0.0, 0
+    public_s, public_gc_s, launched, batch_s, upload_s = 0.0, 0.0, 0, [], []
     for batch in batches:
         host = np.stack([make_video(i) for i in batch])
         torch.cuda.synchronize()
         before = hash_cubes.launches
+        g0 = GC.seconds
         t0 = time.perf_counter()
         out = hash_raw_frames_device(host, device=dev)
         torch.cuda.synchronize()
-        public_s += time.perf_counter() - t0
+        batch_s.append(time.perf_counter() - t0)
+        public_s += batch_s[-1]
+        public_gc_s += GC.seconds - g0
         launched += hash_cubes.launches - before
+        # the public call's upload step alone (host clock, synchronised)
+        t0 = time.perf_counter()
+        uploaded = pipeline._to_device(host, dev)
+        torch.cuda.synchronize()
+        upload_s.append(time.perf_counter() - t0)
+        require(torch.equal(uploaded.cpu(), torch.from_numpy(host)), "the upload changed the frames")
+        del uploaded
         # the same batch, stage by stage, timed by CUDA events
         pinned = torch.from_numpy(host).pin_memory()
         frames, ms = timed(lambda: pinned.to(dev, non_blocking=True))
@@ -873,8 +1080,10 @@ def device_preproc_phase(dev, hash_cubes) -> int:
     require(worst <= 2, f"device preprocessing vs f64 golden hash: {worst} bits")
     phase("device_preproc_1080p", videos=N_VIDEOS, batches=json.dumps([len(b) for b in batches]),
           crop_buckets=buckets, crops="exact", golden_cubes=f"{N_GOLDEN_VIDEOS} bit-exact",
-          golden_hash_max_bits=worst, public_s=round(public_s, 4),
-          videos_per_s=f"{N_VIDEOS / public_s:.4g}", public_includes="pinning + h2d",
+          golden_hash_max_bits=worst, public_s=round(public_s, 4), gc_s=round(public_gc_s, 4),
+          batch_s=json.dumps([round(x, 4) for x in batch_s]),
+          upload_s=json.dumps([round(x, 4) for x in upload_s]),
+          videos_per_s=f"{N_VIDEOS / public_s:.4g}", public_includes="the upload (pinned) + h2d",
           stage_ms_per_batch=json.dumps({k: [round(x, 3) for x in v] for k, v in stage_ms.items()}),
           stages_include="h2d timed apart; letterbox includes its 16-byte-per-video d2h",
           launches=json.dumps({"hash_cubes": launched}))
@@ -950,6 +1159,7 @@ def main() -> int:
     from vid_dup_finder_lib_tpu_torch.utils import cuda_build
 
     dev = torch.device("cuda")
+    GC.start()
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
@@ -977,28 +1187,66 @@ def main() -> int:
     counters = (hash_cubes, hc.band_counts, hc.band_pack)
     for fn in counters:
         fn.launches = 0
+    # the first search's adjacency (state, sweep, decode: it ends on the
+    # host) timed apart, by a wrapper that adds no synchronisation; inside
+    # it the sweep state (synchronised after it) and the decode
+    first = {"adjacency": 0.0, "state_h2d": 0.0, "decode": 0.0}
+    real_adjacency = vdf.Search._ensure_adjacency
+    real_state_init = hc.SearchState.__init__
+    real_decode = hc.decode_words
+
+    def timed(name, fn):
+        def wrapper(*a, **kw):
+            t = time.perf_counter()
+            out = fn(*a, **kw)
+            if name != "adjacency":
+                torch.cuda.synchronize()
+            first[name] += time.perf_counter() - t
+            return out
+        return wrapper
+
     t0 = time.perf_counter()
     words = hash_cubes(cubes)
+    g0, t_objects = GC.seconds, time.perf_counter()
     hashes = vdf.VideoHash.many_from_packed_u32(packed, paths, durations)
     torch.cuda.synchronize()
     t1 = time.perf_counter()
-    groups = vdf.search(hashes, TOLERANCE, device=dev)
-    torch.cuda.synchronize()
+    objects_gc_s, g0 = GC.seconds - g0, GC.seconds
+    vdf.Search._ensure_adjacency = timed("adjacency", real_adjacency)
+    hc.SearchState.__init__ = timed("state_h2d", real_state_init)
+    hc.decode_words = timed("decode", real_decode)
+    try:
+        groups = vdf.search(hashes, TOLERANCE, device=dev)
+        torch.cuda.synchronize()
+    finally:
+        vdf.Search._ensure_adjacency = real_adjacency
+        hc.SearchState.__init__ = real_state_init
+        hc.decode_words = real_decode
     e2e_s = time.perf_counter() - t0
     search_s = time.perf_counter() - t1
+    search_gc_s = GC.seconds - g0
     launches = {fn.__name__: fn.launches for fn in counters}
     found = groups_as_sets(groups)
     require(all(v > 0 for v in launches.values()), f"every kernel launched: {launches}")
     require(found == planted, f"1M search found {len(found)} groups, "
             f"{len(found & planted)} of the {len(planted)} planted")
     # the public search again, warm: its wall time as a user sees it
+    g0 = GC.seconds
     t0 = time.perf_counter()
     again = vdf.search(hashes, TOLERANCE, device=dev)
     torch.cuda.synchronize()
     search_again_s = time.perf_counter() - t0
+    again_gc_s = GC.seconds - g0
     require(again == groups, "a second public search gave other groups")
-    phase("main_path", seconds=round(e2e_s, 3), search_s=round(search_s, 4),
-          search_again_s=round(search_again_s, 4), groups=len(found),
+    # ... and once more, warm, step by step
+    stepped, steps = search_steps(hc, hashes, dev)
+    require(stepped == groups, "the stepwise search gave other groups")
+    phase("main_path", seconds=round(e2e_s, 3), objects_s=round(t1 - t_objects, 4),
+          search_s=round(search_s, 4), search_gc_s=round(search_gc_s, 4),
+          search_adjacency_s=round(first["adjacency"], 4),
+          search_adjacency_parts_s=json.dumps({k: round(v, 4) for k, v in first.items() if k != "adjacency"}),
+          search_again_s=round(search_again_s, 4), search_again_gc_s=round(again_gc_s, 4),
+          objects_gc_s=round(objects_gc_s, 4), **steps.fields(), groups=len(found),
           planted_found=len(found & planted), launches=json.dumps(launches))
 
     # ---- K1: hash kernel vs plain (card) and vs the f64 golden model
@@ -1224,11 +1472,15 @@ def main() -> int:
     refs_comps = int(np.sum(hi - lo))
     for fn in band_counters:
         fn.launches = 0
+    g0 = GC.seconds
     t0 = time.perf_counter()
     ref_groups = vdf.search_with_references(ref_hashes, cand_hashes, TOLERANCE, device=dev)
     torch.cuda.synchronize()
     refs_e2e_s = time.perf_counter() - t0
+    refs_gc_s = GC.seconds - g0
     refs_launches = {fn.__name__: fn.launches for fn in band_counters}
+    stepped, refs_breakdown = refs_steps(hc, ref_hashes, cand_hashes, dev)
+    require(stepped == ref_groups, "refs: the stepwise search gave other groups")
     require(refs_launches["band_counts"] > 0 and refs_launches["band_pack"] > 0,
             f"window-mode kernels launched: {refs_launches}")
     want = {f"/r/{k:06}.mp4": {f"/v/{c:08}.mp4"} for k, c in plants}
@@ -1262,7 +1514,8 @@ def main() -> int:
     k3_refs_plain_ms = cuda_ms(lambda: hc.band_pack_plain(rst, rhits, TOL_INT))
     phase("refs_10k_x_1m", bound="exact", refs=N_REFS, candidates=N_LIBRARY,
           comparisons=refs_comps, groups=len(ref_groups), planted_found=len(got),
-          seconds=round(refs_e2e_s, 3), sweep_s=round(refs_sweep_s, 4),
+          seconds=round(refs_e2e_s, 3), gc_s=round(refs_gc_s, 4), **refs_breakdown.fields(),
+          sweep_s=round(refs_sweep_s, 4),
           comps_per_s=f"{refs_comps / refs_sweep_s:.4g}", ref_tiles=rst.n_row_tiles,
           slots=rst.slots, hit_tiles=rhits.shape[0],
           counts_ms=round(k2_refs_ms, 3), counts_plain_ms=round(k2_refs_plain_ms, 3),
@@ -1291,7 +1544,7 @@ def main() -> int:
         require(all(launched[fn.__name__] > 0 for fn in lib_counters),
                 f"library_1m ({name}): kernels launched {launched}")
         lib_launches[name] = launched
-        return out, dict(seconds=round(seconds, 4), peak_bytes=peak,
+        return out, dict(seconds=round(seconds, 4), gc_s=round(GC.last, 4), peak_bytes=peak,
                          launches=json.dumps(launched))
 
     def appended(rows, chunks=LIBRARY_CHUNKS):
@@ -1312,9 +1565,11 @@ def main() -> int:
     require(groups_as_sets(a_groups) == planted and a_groups == groups,
             f"library (a): {len(groups_as_sets(a_groups) & planted)} of {len(planted)}"
             " planted groups, or groups unequal to the upload path's")
+    stepped, a_steps = search_steps(hc, hashes, dev, lib, lib_paths)
+    require(stepped == groups, "library (a): the stepwise search gave other groups")
     phase("library_1m_a", insertion="shuffled", appends=LIBRARY_CHUNKS,
           append_s=round(append_s, 4), capacity=lib.capacity, groups=len(a_groups),
-          planted_found=len(groups_as_sets(a_groups) & planted), **a)
+          planted_found=len(groups_as_sets(a_groups) & planted), **a, **a_steps.fields())
     del lib, lib_paths
 
     # (b) sorted insertion order: the state shares the library's buffer
@@ -1327,6 +1582,8 @@ def main() -> int:
     zero_copy = states[-1].packed.data_ptr() == lib.packed.data_ptr()
     require(zero_copy, "library (b): the identity-order state copied the buffer")
     require(b_groups == groups, "library (b): groups unequal to the upload path's")
+    stepped, b_steps = search_steps(hc, hashes, dev, lib)
+    require(stepped == groups, "library (b): the stepwise search gave other groups")
     bb_groups, bb = library_run("b_band", lambda: vdf.search(
         hashes, TOLERANCE, backend="band", device_library=lib, device=dev),
         lib_counters=(hb.band_sweep,))
@@ -1335,7 +1592,7 @@ def main() -> int:
     require(bb_groups == groups, "library (b, band): groups unequal to the upload path's")
     phase("library_1m_b", insertion="sorted", zero_copy=zero_copy, groups=len(b_groups),
           band_groups=len(bb_groups), band_seconds=bb["seconds"],
-          band_peak_bytes=bb["peak_bytes"], band_launches=bb["launches"], **b)
+          band_peak_bytes=bb["peak_bytes"], band_launches=bb["launches"], **b, **b_steps.fields())
 
     # (c) 100,000 new rows with 20 more planted clusters, durations spread
     # among the old ones: the library grows past its capacity and the

@@ -859,3 +859,70 @@ def test_refs_sharded_hash_and_scan_over_distinct_cards(dev):
     durs = np.sort(rng.integers(50, 400, 1500))
     for a, b in zip(ring_candidate_scan(mesh, packed, durs, 470), scan_reference(packed, durs, 470)):
         assert np.array_equal(a, b)
+
+
+# -- uploads through the pinned staging buffer ------------------------------------
+
+
+def test_staging_two_uploads_in_flight_arrive_exact(dev):
+    """Two uploads queued behind a long matmul through one small staging
+    buffer: each half is rewritten only after its DMA, so both arrive
+    exact; the second upload's source may change once the call returns."""
+    from vid_dup_finder_lib_tpu_torch.utils.staging import PinnedStaging
+
+    rng = np.random.default_rng(20)
+    a = rng.integers(0, 2**31, (70_001,), dtype=np.int64)
+    b = rng.integers(0, 256, (1_000_003,), dtype=np.uint8)
+    st = PinnedStaging(half_bytes=64 * 1024)
+    x = torch.randn(4096, 4096, device=dev)
+    for _ in range(8):
+        x = x @ x  # keeps the stream busy while the halves are reused
+        x /= x.norm()
+    da = torch.empty(a.shape, dtype=torch.int64, device=dev)
+    db = torch.empty(b.shape, dtype=torch.uint8, device=dev)
+    st.copy(da, torch.from_numpy(a))
+    sb = torch.from_numpy(b.copy())
+    st.copy(db, sb)
+    sb.zero_()
+    assert torch.equal(da.cpu(), torch.from_numpy(a))
+    assert torch.equal(db.cpu(), torch.from_numpy(b))
+
+
+def test_staging_upload_larger_than_a_half_arrives_exact(dev):
+    from vid_dup_finder_lib_tpu_torch.utils import staging
+
+    host = np.random.default_rng(21).integers(0, 256, (3 * staging.HALF_BYTES + 12_345,), dtype=np.uint8)
+    got = staging.to_device(host, dev)
+    assert got.device.type == "cuda" and got.dtype == torch.uint8
+    assert torch.equal(got.cpu(), torch.from_numpy(host))
+    ro = host[:1000].view()
+    ro.setflags(write=False)  # a read-only source (a batch's matrix) goes up too
+    assert torch.equal(staging.to_device(ro, dev).cpu(), torch.from_numpy(host[:1000]))
+
+
+@pytest.mark.parametrize("n", [1, 127, 1000, 4096])
+def test_tiled_upload_pads_with_zero_rows(dev, n):
+    """The padded tail rows are zero even where the allocator hands back
+    memory that held other bytes."""
+    junk = torch.full((8192, 32), -1, dtype=torch.int32, device=dev)
+    del junk
+    packed = np.random.default_rng(n).integers(0, 2**32, (n, 32), dtype=np.uint64).astype(np.uint32)
+    got = hc._tiled(packed, dev)
+    n_pad = -(-n // hc.TILE) * hc.TILE
+    assert got.shape == (n_pad, 32) and got.dtype == torch.int32 and got.device.type == "cuda"
+    np.testing.assert_array_equal(got[:n].cpu().numpy().view(np.uint32), packed)
+    assert not got[n:].any()
+    np.testing.assert_array_equal(got.cpu().numpy(), hc._tiled(packed, torch.device("cpu")).numpy())
+
+
+def test_hash_raw_frames_device_same_words_through_the_staging_buffer(dev):
+    """Host frames (through the staging buffer) hash to the words of the
+    same frames uploaded by a plain copy."""
+    raw = _raw_batch()
+    staged = hash_raw_frames_device(raw, device=dev)
+    plain = hash_raw_frames_device(torch.from_numpy(raw).to(dev))
+    assert torch.equal(staged, plain)
+    cubes = _cubes(300, seed=22)
+    from vid_dup_finder_lib_tpu_torch.models.pipeline import _to_device
+
+    assert torch.equal(hk.hash_cubes(_to_device(cubes, dev)), hk.hash_cubes(torch.from_numpy(cubes).to(dev)))

@@ -4,14 +4,14 @@
 
 Host preprocessing (the default): a host thread pool decodes, crops and
 resizes videos into 16x16x16 cubes (:func:`safe_prepare`);
-each batch of cubes goes to the device from pinned memory without blocking
-and through :func:`..ops.hash_kernel.hash_cubes`.  Kernel launches are
+each batch of cubes goes to the device through the reused pinned staging
+buffer (:mod:`..utils.staging`) and through :func:`..ops.hash_kernel.hash_cubes`.  Kernel launches are
 asynchronous, so batch k hashes while batch k+1 decodes; the packed hashes
 (128 B per video) come back once the pool has drained.
 
 Device preprocessing (``device_preproc=True``, default from
 ``VDF_DEVICE_PREPROC``): the host only decodes 16 raw frames per video;
-batches of one resolution go to the device once from pinned memory, and
+batches of one resolution go to the device once through that buffer, and
 letterbox detection (:mod:`..ops.letterbox_device`), the per-crop resize
 (:mod:`..ops.resize_device`) and the hash kernel run there
 (:func:`hash_raw_frames_device`).  No pixel comes back to the host.
@@ -32,6 +32,7 @@ from ..errors import VdfError, VidProc
 from ..ops.hash_kernel import hash_cubes
 from ..ops.letterbox_device import cropdetect_letterbox_device
 from ..ops.resize_device import resize_frames_device
+from ..utils import staging
 from ..utils.device import resolve_device
 from ..video_hash import VideoHash
 from .builder import CreationOptions, prepare_frames, prepare_raw_frames
@@ -56,11 +57,9 @@ def safe_prepare(path: str, options: CreationOptions):
 
 
 def _to_device(host: np.ndarray, dev: torch.device) -> torch.Tensor:
-    """A contiguous host array on ``dev``, from pinned memory on CUDA."""
-    t = torch.from_numpy(np.ascontiguousarray(host))
-    if dev.type == "cuda":
-        t = t.pin_memory().to(dev, non_blocking=True)
-    return t
+    """A contiguous host array on ``dev``, through the pinned staging
+    buffer on CUDA (:func:`..utils.staging.to_device`)."""
+    return staging.to_device(torch.from_numpy(np.ascontiguousarray(host)), dev)
 
 
 def hash_raw_frames_device(

@@ -49,7 +49,7 @@ import numpy as np
 import torch
 
 from ..definitions import HASH_BITS_PADDED, HASH_WORDS32
-from ..utils import cuda_build
+from ..utils import cuda_build, staging
 from ..utils.device import resolve_device
 
 TILE = 128  # rows per row tile == columns per column tile (csrc TILE)
@@ -110,9 +110,18 @@ def _packed_rows(packed_u32: np.ndarray, what: str) -> np.ndarray:
 
 def _tiled(packed_u32: np.ndarray, device: torch.device) -> torch.Tensor:
     """uint32[n, 32] -> int32[ceil(n / TILE) * TILE, 32] on ``device``,
-    the words as int32 bit patterns, pad rows zero."""
-    host = np.zeros((-(-packed_u32.shape[0] // TILE) * TILE, HASH_WORDS32), np.uint32)
-    host[: packed_u32.shape[0]] = packed_u32
+    the words as int32 bit patterns, pad rows zero.  On a CUDA device the
+    pad rows are zeroed there and the rows go up through the pinned
+    staging buffer (:mod:`..utils.staging`)."""
+    n = packed_u32.shape[0]
+    n_pad = -(-n // TILE) * TILE
+    if device.type == "cuda":
+        out = torch.empty((n_pad, HASH_WORDS32), dtype=torch.int32, device=device)
+        out[n:].zero_()
+        staging.upload_into(out[:n], packed_u32.view(np.int32))
+        return out
+    host = np.zeros((n_pad, HASH_WORDS32), np.uint32)
+    host[:n] = packed_u32
     return torch.from_numpy(host.view(np.int32)).to(device)
 
 

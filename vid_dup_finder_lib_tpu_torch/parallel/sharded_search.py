@@ -23,6 +23,7 @@ import torch
 from ..definitions import HASH_BITS, HASH_BITS_PADDED, SELF_SEARCH_DURATION_FACTOR
 from ..ops import hamming_cuda as hc
 from ..ops import hash_kernel as hk
+from ..utils import staging
 from .mesh import Mesh
 from .ring_cuda import banded_adjacency_ring  # noqa: F401
 
@@ -40,9 +41,10 @@ def sharded_hash_batch(mesh: Mesh, cubes: np.ndarray | torch.Tensor) -> np.ndarr
     else:
         cubes = torch.from_numpy(np.ascontiguousarray(cubes))
     hk._check_cubes(cubes)
-    # every part is launched before any result is fetched
-    outs = [hk.hash_cubes(part.to(dev)) for part, dev in zip(torch.tensor_split(cubes, mesh.size), mesh)
-            if part.shape[0]]
+    # every part is launched before any result is fetched; a host part goes
+    # up through the pinned staging buffer
+    outs = [hk.hash_cubes(staging.to_device(part, dev))
+            for part, dev in zip(torch.tensor_split(cubes, mesh.size), mesh) if part.shape[0]]
     if not outs:
         return np.zeros((0, HASH_BITS_PADDED // 32), np.uint32)
     return torch.cat([o.cpu() for o in outs]).numpy().view(np.uint32)

@@ -76,7 +76,7 @@ from .ops.hamming import banded_adjacency, refs_adjacency
 from .ops.hamming_band import banded_adjacency_band
 from .ops.hamming_cuda import IncrementalDeviceLibrary, banded_adjacency_cuda
 from .utils.device import resolve_device
-from .video_hash import VideoHash, VideoHashBatch, hashes_to_matrix
+from .video_hash import VideoHash, VideoHashBatch, ascii_path_array, hashes_to_matrix
 
 BACKENDS = ("auto", "device", "band", "host", "native", "ring", "naive")
 
@@ -128,16 +128,14 @@ class Search:
         # bytewise and numpy's S dtype does too, so an all-ASCII path
         # array sorts identically under np.lexsort (stable, like Python's
         # sorted).  Non-ASCII paths (where UTF-8 byte order and str
-        # code-point order can disagree on surrogate-escaped bytes) take
-        # the exact Python key.
+        # code-point order can disagree on surrogate-escaped bytes), paths
+        # holding NUL (which an S row drops at its end) and paths that are
+        # not str take the exact Python key.
         if entries and durations is None:
             durations = np.fromiter(
                 (e.duration for e in entries), dtype=np.int64, count=len(entries)
             )
-            try:
-                paths = np.array([os.fspath(e.src_path) for e in entries], dtype=np.bytes_)
-            except (UnicodeEncodeError, TypeError, ValueError):
-                paths = None
+            paths = ascii_path_array([e.src_path for e in entries])
         # whether the constructor re-sorted the input: the identity order
         # of attach_device_library(lib, None) is only trusted when it did not
         self._ctor_resorted: bool | None = False
@@ -161,6 +159,8 @@ class Search:
                 ent_arr[:] = entries
                 entries = ent_arr[order].tolist()
                 durations = durations[order]
+                if paths is not None:
+                    paths = paths[order]
                 if packed_mat is not None:
                     # the batch's matrix follows its entries (the JAX
                     # package drops it on non-ASCII paths)
@@ -182,6 +182,9 @@ class Search:
         self._cands_dev: torch.Tensor | None = None
         # host packed matrix, built once (a VideoHashBatch seeds it)
         self._packed_mat: np.ndarray | None = packed_mat
+        # the sorted entries' paths as bytes (ascii_path_array), or None:
+        # the attach's vectorised lookup
+        self._paths_bytes: np.ndarray | None = paths if entries else None
 
     def _packed_matrix(self) -> np.ndarray:
         if self._packed_mat is None:
@@ -198,6 +201,7 @@ class Search:
         self._library = None
         self._library_order = None
         self._packed_mat = None
+        self._paths_bytes = None
         # the entries were re-sorted: attach_device_library(lib, None)
         # must spot-check the library's order again (the JAX package
         # keeps the old flag here)
@@ -230,10 +234,17 @@ class Search:
                 backend=backend,
                 device=self.device,
             )
-        # pairs are lexsorted by (i, j): CSR by one searchsorted
         self._adj_j = pairs_j
-        self._adj_off = np.searchsorted(pairs_i, np.arange(len(self.entries) + 1))
+        self._adj_off = self._adjacency_offsets(pairs_i, len(self.entries))
         self._tol_of_adjacency = tolerance_int
+
+    @staticmethod
+    def _adjacency_offsets(pairs_i: np.ndarray, n: int) -> np.ndarray:
+        """CSR offsets of pairs lexsorted by (i, j): row i's pairs are
+        ``[off[i], off[i + 1])``, from the pairs per row."""
+        off = np.zeros(n + 1, dtype=np.int64)
+        np.cumsum(np.bincount(pairs_i, minlength=n), out=off[1:])
+        return off
 
     def _self_search_bounds(self) -> np.ndarray:
         """For each i, the exclusive upper index bound of the +10% duration
@@ -260,7 +271,6 @@ class Search:
         if use_adjacency:
             self._ensure_adjacency(tol, backend)
 
-        bounds = self._self_search_bounds()
         matched = self.matched
         ret: list[list[str]] = []
         if use_adjacency:
@@ -289,6 +299,7 @@ class Search:
                 ret.append(match_vec)
             matched[:] = True
         else:
+            bounds = self._self_search_bounds()
             for lhs in range(n):
                 if matched[lhs]:
                     continue
@@ -353,14 +364,11 @@ class Search:
         come in ascending candidate order, and the results in input
         order."""
         tol = _tolerance_int(tolerance)
-        refs = list(references)
+        refs = references if isinstance(references, VideoHashBatch) else list(references)
         if not refs or not self.entries:
             return [[] for _ in refs]
-        order = sorted(range(len(refs)), key=lambda k: refs[k].duration)
-        windows = np.array(
-            [self._duration_slice(refs[k].duration) for k in order], np.int64
-        )
-        ref_mat = hashes_to_matrix([refs[k] for k in order])
+        order, lo, hi = self._reference_windows(refs)
+        ref_mat = self._reference_matrix(refs, order)
         cands = self._ensure_cands_dev()
         if os.environ.get("VDF_REFS_SHARDED") == "1":
             # imported here: a process that never shards loads none of it
@@ -369,8 +377,8 @@ class Search:
 
             pi, pj = refs_adjacency_sharded(
                 ref_mat,
-                windows[:, 0],
-                windows[:, 1],
+                lo,
+                hi,
                 tol,
                 cands_packed=self._packed_matrix() if cands is None else None,
                 cands_dev=cands,
@@ -386,25 +394,63 @@ class Search:
             pi, pj = native.refs_windowed_native(
                 ref_mat.view(np.uint64),
                 np.ascontiguousarray(self._packed_matrix()).view(np.uint64),
-                windows[:, 0],
-                windows[:, 1],
+                lo,
+                hi,
                 tol,
             )
         else:
             pi, pj = refs_adjacency(
                 ref_mat,
                 self._packed_matrix() if cands is None else cands,
-                windows[:, 0],
-                windows[:, 1],
+                lo,
+                hi,
                 tol,
                 device=self.device,
                 n_cands=len(self.entries),
             )
         keep = ~self.matched[pj]
         results: list[list[str]] = [[] for _ in refs]
+        order = order.tolist()
         for i, j in zip(pi[keep].tolist(), pj[keep].tolist()):
             results[order[i]].append(self.entries[j].src_path)
         return results
+
+    def _reference_windows(
+        self, refs: Sequence[VideoHash]
+    ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """(order, lo, hi): the references' stable order by duration, and
+        each sorted reference's candidate window ``[lo, hi)``, the
+        :meth:`_duration_slice` of every reference at once.  The
+        truncation stays ``int(float(d) * f)``: the float64 product cast to
+        int64 truncates towards zero as ``int`` does."""
+        if isinstance(refs, VideoHashBatch) and refs.arrays_valid:
+            durs = refs.durations
+        else:
+            durs = np.array([r.duration for r in refs])  # int64, or float64 where fractional
+        if durs.dtype.kind not in "iuf" or not np.isfinite(durs).all():
+            # durations past int64, or not numbers: the exact per-reference path
+            order = np.array(sorted(range(len(refs)), key=lambda k: refs[k].duration), np.int64)
+            lo, hi = np.array(
+                [self._duration_slice(refs[k].duration) for k in order], np.int64
+            ).reshape(-1, 2).T
+            return order, lo, hi
+        order = np.argsort(durs, kind="stable")
+        d = durs[order].astype(np.float64)
+        lo = np.searchsorted(
+            self._durations, (d * REF_SEARCH_DURATION_LO).astype(np.int64), side="left"
+        )
+        hi = np.searchsorted(
+            self._durations, (d * REF_SEARCH_DURATION_HI).astype(np.int64), side="right"
+        )
+        return order, lo, hi
+
+    @staticmethod
+    def _reference_matrix(refs: Sequence[VideoHash], order: np.ndarray) -> np.ndarray:
+        """The references' packed rows in ``order``: a valid batch's
+        matrix rows, else the hashes one by one."""
+        if isinstance(refs, VideoHashBatch) and refs.arrays_valid:
+            return refs.packed_u32[order]
+        return hashes_to_matrix([refs[k] for k in order.tolist()])
 
     def attach_device_library(
         self,
@@ -460,17 +506,7 @@ class Search:
                         )
             order = np.arange(len(self.entries), dtype=np.int64)
         else:
-            idx = {p: i for i, p in enumerate(insertion_paths)}
-            try:
-                order = np.array(
-                    [idx[e.src_path] for e in self.entries], dtype=np.int64
-                )
-            except KeyError as e:
-                raise ValueError(
-                    f"attach_device_library: entry src_path {e.args[0]!r}"
-                    f" has no row in insertion_paths — every Search"
-                    f" entry must have been appended to the library"
-                ) from None
+            order = self._insertion_rows(insertion_paths)
             if order.size and int(order.max()) >= library.n:
                 k = int(np.argmax(order))
                 raise ValueError(
@@ -482,6 +518,50 @@ class Search:
         self._library_order = order
         self._cands_dev = None  # gathered lazily by the refs path
         self._adj_j = self._adj_off = None  # adjacency source changed
+
+    def _insertion_rows(self, insertion_paths: Sequence[str]) -> np.ndarray:
+        """Each sorted entry's row in ``insertion_paths`` (the last row of
+        a repeated path).  Where both sides have bytewise path arrays
+        (:func:`.video_hash.ascii_path_array`), the rows come from a join
+        of 64-bit keys of the paths' bytes (the insertion keys sorted, the
+        largest row of each key kept, ``np.searchsorted`` of the entries'
+        keys), and every row found is held to its entry's bytes; otherwise,
+        or when two paths share a key, from a dict of the paths."""
+        if not isinstance(insertion_paths, (list, tuple)):
+            insertion_paths = list(insertion_paths)
+        ent = self._paths_bytes
+        ins = ascii_path_array(insertion_paths) if ent is not None else None
+        if ins is not None:
+            width = -(-max(ins.itemsize, ent.itemsize) // 8) * 8
+            ins_words, ent_words = _path_words(ins, width), _path_words(ent, width)
+            ins_keys, ent_keys = _path_keys(ins_words), _path_keys(ent_words)
+            # per distinct key, its last row: the largest index of its run
+            by_key = np.argsort(ins_keys)
+            sorted_keys = ins_keys[by_key]
+            starts = np.flatnonzero(np.diff(sorted_keys, prepend=~sorted_keys[:1]))
+            keys, last_rows = sorted_keys[starts], np.maximum.reduceat(by_key, starts)
+            queries = np.argsort(ent_keys)  # searched in key order: fewer cache misses
+            pos = np.empty(len(ent_keys), dtype=np.int64)
+            pos[queries] = np.searchsorted(keys, ent_keys[queries])
+            hit = keys[np.minimum(pos, len(keys) - 1)] == ent_keys
+            if not hit.all():
+                self._raise_missing(self.entries[int(np.argmin(hit))].src_path)
+            rows = last_rows[pos]
+            if (ins_words[rows] == ent_words).all():
+                return rows
+        idx = {p: i for i, p in enumerate(insertion_paths)}
+        try:
+            return np.array([idx[e.src_path] for e in self.entries], dtype=np.int64)
+        except KeyError as e:
+            self._raise_missing(e.args[0])
+
+    @staticmethod
+    def _raise_missing(src_path: str):
+        raise ValueError(
+            f"attach_device_library: entry src_path {src_path!r}"
+            f" has no row in insertion_paths — every Search"
+            f" entry must have been appended to the library"
+        ) from None
 
     @staticmethod
     def _library_rows(library: IncrementalDeviceLibrary, idx) -> np.ndarray:
@@ -496,6 +576,24 @@ class Search:
         if self._cands_dev is None and self._library is not None:
             self._cands_dev = self._library.sorted_rows(self._library_order)
         return self._cands_dev
+
+
+def _path_words(paths: np.ndarray, width: int) -> np.ndarray:
+    """A bytewise path array as uint64[n, width / 8], NUL-padded."""
+    chars = np.zeros((len(paths), width), dtype=np.uint8)
+    chars[:, : paths.itemsize] = paths.view(np.uint8).reshape(len(paths), paths.itemsize)
+    return chars.view(np.uint64)
+
+
+def _path_keys(words: np.ndarray) -> np.ndarray:
+    """One uint64 key per row of :func:`_path_words`: the row itself when
+    it is one word (equal keys are then equal paths), else a multiplicative
+    hash of its words (equal paths give equal keys)."""
+    keys = words[:, 0].copy()
+    for k in range(1, words.shape[1]):
+        keys *= np.uint64(0x9E3779B97F4A7C15)
+        keys ^= words[:, k]
+    return keys
 
 
 def _distances_one_to_many(target: VideoHash, entries: list[VideoHash]) -> np.ndarray:
@@ -575,7 +673,7 @@ def search_with_references(
     s = Search(new_hashes, device=device)
     if device_library is not None:
         s.attach_device_library(device_library, library_paths)
-    refs = list(ref_hashes)
+    refs = ref_hashes if isinstance(ref_hashes, VideoHashBatch) else list(ref_hashes)
     if len(refs) >= _BATCHED_REFS_THRESHOLD or device_library is not None:
         all_matches = s.search_with_references_batched(refs, tolerance)
     else:

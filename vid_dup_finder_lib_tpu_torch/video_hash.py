@@ -14,8 +14,10 @@ pure ``view`` with no bit shuffling.
 
 from __future__ import annotations
 
-import os
+import gc
+from collections import deque
 from dataclasses import dataclass, field, replace
+from itertools import repeat
 from typing import Iterable, Iterator
 
 import numpy as np
@@ -27,6 +29,10 @@ from .definitions import (
     HASH_WORDS32,
     TOLERANCE_SCALING_FACTOR,
 )
+
+
+# many_from_packed_u32 collects once after building this many objects or more
+GC_SETTLE_MIN = 1 << 16
 
 
 class VideoHashBatch(list):
@@ -43,8 +49,9 @@ class VideoHashBatch(list):
       rows' ``hash`` fields are read-only views into this buffer).
     * ``durations`` — ``int64[n]``.
     * ``paths_bytes`` — bytewise path array (``np.bytes_``) for the
-      (duration, path) sort, or ``None`` when a path refuses ASCII
-      encoding (``Search`` then falls back to the exact per-object key).
+      (duration, path) sort, or ``None`` unless every path is a ``str`` of
+      ASCII characters other than NUL (:func:`ascii_path_array`;
+      ``Search`` then falls back to the exact per-object key).
 
     Any in-place list mutation (append/sort/item assignment/...) marks
     the arrays stale; consumers must check :attr:`arrays_valid` and fall
@@ -80,6 +87,33 @@ for _name in (
 del _name
 
 
+def ascii_path_array(paths: list) -> np.ndarray | None:
+    """``paths`` as one bytewise array (``np.bytes_``, as
+    ``np.array(paths, dtype=np.bytes_)`` gives it), or None unless every
+    path is a ``str`` of ASCII characters other than NUL: the bytes order
+    is then the paths' bytewise order (``os.fsencode``), and equal rows are
+    equal paths (a ``np.bytes_`` row drops trailing NULs).  Built from one
+    NUL-separated join of the paths, without a Python step per path."""
+    try:
+        joined = "\x00".join(paths).encode("ascii")
+    except (TypeError, UnicodeEncodeError):
+        return None
+    n = len(paths)
+    if n == 0:
+        return None
+    buf = np.frombuffer(joined + b"\x00", dtype=np.uint8)
+    ends = np.flatnonzero(buf == 0)
+    if len(ends) != n:  # a path holds a NUL
+        return None
+    lengths = np.diff(ends, prepend=-1) - 1
+    width = max(int(lengths.max()), 1)
+    if int(lengths.min()) == width:
+        return np.ascontiguousarray(buf.reshape(n, width + 1)[:, :width]).view(f"S{width}").ravel()
+    chars = np.zeros((n, width), dtype=np.uint8)
+    chars[np.arange(width) < lengths[:, None]] = buf[buf != 0]
+    return chars.view(f"S{width}").ravel()
+
+
 def pack_bits(bits: np.ndarray) -> np.ndarray:
     """Pack a boolean vector of length >= HASH_BITS (extra ignored) into
     uint64[HASH_WORDS], LSB-first within each word."""
@@ -98,9 +132,10 @@ def unpack_bits(words: np.ndarray) -> np.ndarray:
     return bits[:HASH_BITS].astype(bool)
 
 
-@dataclass(frozen=True)
+@dataclass(frozen=True, slots=True)
 class VideoHash:
-    """A perceptual hash of one video file."""
+    """A perceptual hash of one video file.  Its fields live in slots, with
+    no per-object ``__dict__``: a library holds millions of them."""
 
     hash: np.ndarray = field(
         default_factory=lambda: np.zeros(HASH_WORDS, dtype=np.uint64)
@@ -177,7 +212,10 @@ class VideoHash:
         per-row constructor at library scale.
 
         Returns a :class:`VideoHashBatch` (a ``list`` subclass) whose
-        backing arrays let ``Search`` skip all per-object iteration."""
+        backing arrays let ``Search`` skip all per-object iteration.  The
+        objects are made by C-level maps with Python's cyclic GC off (it
+        would pass over the growing batch again and again); the caller's
+        GC state is restored before returning, also on an error."""
         # a read-only view: a contiguous uint32 matrix is the caller's own
         # array, and the batch must not hand out a writable alias of it
         w32 = np.ascontiguousarray(matrix, dtype="<u4").view()
@@ -185,7 +223,16 @@ class VideoHash:
         w = w32.view("<u8")
         assert w.shape[1] == HASH_WORDS
         src_paths = list(src_paths)
-        durations = list(durations)
+        if (
+            isinstance(durations, np.ndarray)
+            and durations.ndim == 1
+            and np.can_cast(durations.dtype, np.int64)
+        ):
+            dur_arr = durations.astype(np.int64)
+            durations = dur_arr.tolist()  # Python ints, as int(d) gives them
+        else:
+            durations = [int(d) for d in durations]
+            dur_arr = None
         if not (len(src_paths) == len(durations) == w.shape[0]):
             # a silent zip-truncation here would drop hashes (and their
             # duplicates) without a trace; a too-long paths list would
@@ -198,32 +245,27 @@ class VideoHash:
         # the frozen-dataclass __init__ + __post_init__ dominate at this
         # volume; validation already happened once on the whole matrix,
         # so construct directly (rows are read-only u64 views)
-        new, setattr_ = VideoHash.__new__, object.__setattr__
-        out: list[VideoHash] = []
-        path_keys: list[str] = []
-        dur_list: list[int] = []
-        for i, (p, d) in enumerate(zip(src_paths, durations)):
-            o = new(VideoHash)
-            setattr_(o, "hash", w[i])
-            setattr_(o, "src_path", p)
-            d = int(d)
-            setattr_(o, "duration", d)
-            out.append(o)
-            path_keys.append(p if type(p) is str else os.fspath(p))
-            dur_list.append(d)
-        k = len(out)
+        k = w.shape[0]
+        gc_was_enabled = gc.isenabled()
+        gc.disable()
         try:
-            # np.bytes_ conversion ASCII-encodes; non-ASCII paths (where
-            # UTF-8 byte order and code-point order can diverge) raise
-            # and drop to the exact per-object sort key in Search
-            paths_arr = np.array(path_keys, dtype=np.bytes_) if k else None
-        except (UnicodeEncodeError, TypeError, ValueError):
-            paths_arr = None
+            out = list(map(VideoHash.__new__, repeat(VideoHash, k)))
+            for name, values in (("hash", list(w)), ("src_path", src_paths), ("duration", durations)):
+                deque(map(object.__setattr__, out, repeat(name), values), maxlen=0)
+            if gc_was_enabled and k >= GC_SETTLE_MIN:
+                # the collections the loop skipped, once, here rather than in
+                # the caller's next calls: a full one where the new objects
+                # are a quarter of the oldest generation or more (when the
+                # collector itself would have run one), else the young ones
+                gc.collect(2 if 4 * k >= len(gc.get_objects(generation=2)) else 1)
+        finally:
+            if gc_was_enabled:
+                gc.enable()
         return VideoHashBatch(
             out,
             w32[:k],
-            np.array(dur_list, dtype=np.int64),
-            paths_arr,
+            np.array(durations, dtype=np.int64) if dur_arr is None else dur_arr,
+            ascii_path_array(src_paths),
         )
 
     @staticmethod
