@@ -23,13 +23,23 @@ with the kernel launch counts set to 0 just before it and read just after:
 * the multi-device layer (``parallel/``) on shards of the card, which run
   in turn with the same planning, per-shard launches, copies between shards
   and merge as shards on cards of their own: ``ring_1m`` (the 1M library
-  through ``banded_adjacency_ring`` on 4 and on 16 shards, over distinct
-  cards where the host has two or more, and ``search(backend="ring")``),
-  ``refs_sharded_10k_x_1m`` (the references split over 4 shards, and
-  ``search_with_references`` with ``VDF_REFS_SHARDED=1``), ``sharded_hash``
-  (the 65,536 cubes over 4 shards) and ``ring_scan``
-  (``ring_candidate_scan`` of 16,384 hashes on 4 shards); ``scale_8m`` also
-  runs its resident library through the ring on 4 shards (``ring_8m``);
+  through ``banded_adjacency_ring`` on 4 and on 16 shards, and
+  ``search(backend="ring")``), ``refs_sharded_10k_x_1m`` (the references
+  split over 4 shards, and ``search_with_references`` with
+  ``VDF_REFS_SHARDED=1``), ``sharded_hash`` (the 65,536 cubes over 4
+  shards) and ``ring_scan`` (``ring_candidate_scan`` of 16,384 hashes on 4
+  shards); ``scale_8m`` also runs its resident library through the ring on
+  4 shards (``ring_8m``).  Each ring phase prints its blocks' cuts (at
+  equal in-band pairs), each (shard, step)'s seconds and pairs, and the
+  wall they project for shards on distinct cards;
+* with two cards or more, the same over every card (at most 4), each
+  exact against the one-card sweep: ``ring_1m_distinct_cards``,
+  ``ring_8m_distinct_cards``, ``refs_sharded_10k_x_1m_distinct_cards``
+  (with the public references search, which stays on one card)
+  and ``auto_ring_1m`` (``search()`` as a user calls it, which must take
+  the ring exactly where the rule says so); on one card each prints a skip
+  line.  The other phases keep to one card (``VDF_AUTO_RING=0``,
+  ``VDF_REFS_SHARDED=0``);
 * ``native_cpu``: on the card's host, with ``device="cpu"``, the native host
   runtime (``native.py``, built by g++) against the card's results;
 * ``device_preproc_1080p``: letterbox detection, resize and hash of 64
@@ -155,6 +165,55 @@ def require(cond: bool, what: str) -> None:
 
 def phase(name: str, **kv) -> None:
     print(f"[{name}] " + " ".join(f"{k}={v}" for k, v in kv.items()), flush=True)
+
+
+@contextlib.contextmanager
+def environ(**kv):
+    """Environment variables set to a value, or unset for None, inside the
+    block; each restored after it."""
+    saved = {k: os.environ.get(k) for k in kv}
+    try:
+        for k, v in kv.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def phase_name(prefix: str, run: str) -> str:
+    """The phase line a run's launches were counted on."""
+    return run if run.startswith("auto_") else f"{prefix}_{run}"
+
+
+def cards_mesh():
+    """Every visible card, at most 4, one shard each; None on one card."""
+    from vid_dup_finder_lib_tpu_torch.parallel.mesh import Mesh
+
+    cards = torch.cuda.device_count()
+    return Mesh([torch.device("cuda", i) for i in range(min(4, cards))]) if cards >= 2 else None
+
+
+def ring_fields(ph: dict) -> dict:
+    """Phase-line fields of ``ring_cuda.LAST_RING_PHASES``: the block
+    starts, each (shard, step)'s seconds and in-band pairs, the walls
+    projected from them for shards on distinct cards (a barrier after each
+    step, and none), and the rest of the breakdown."""
+    keys = ("cuts", "shard_s", "shard_pairs", "projected_wall_s", "projected_free_s")
+    return dict(
+        cuts=json.dumps(ph["cuts"]),
+        shard_s=json.dumps([[round(t, 4) for t in per_step] for per_step in ph["shard_s"]]),
+        shard_pairs=json.dumps(ph["shard_pairs"]),
+        projected_wall_s=round(ph["projected_wall_s"], 4),
+        projected_free_s=round(ph["projected_free_s"], 4),
+        phases=json.dumps({k: round(v, 4) if isinstance(v, float) else v
+                           for k, v in ph.items() if k not in keys}))
 
 
 def cuda_ms(fn, reps: int = 5) -> float:
@@ -694,12 +753,28 @@ def scale_8m_phase(dev, vdf, hc, hb) -> dict:
     require(same_pairs(ring, pairs), f"ring_8m: {len(ring[0])} pairs, the slabbed sweep {len(pairs[0])}")
     require(ring_launches["band_counts"] >= 4 and ring_launches["band_sweep"] == 0,
             f"ring_8m: launches {ring_launches}")
-    ph = ring_cuda.LAST_RING_PHASES
     phase("ring_8m", bound="exact", shards=4, pairs=len(ring[0]), seconds=round(ring_s, 3),
           slabbed_sweep_s=round(sweep_s, 3), ratio=round(ring_s / sweep_s, 3), peak_bytes=ring_peak,
-          launches=json.dumps(ring_launches),
-          phases=json.dumps({k: round(v, 4) if isinstance(v, float) else v for k, v in ph.items()}))
+          launches=json.dumps(ring_launches), **ring_fields(ring_cuda.LAST_RING_PHASES))
     del ring
+    # ... and over every card: the blocks go from the resident library to their cards
+    cards = cards_mesh()
+    ring_cards_launches = None
+    if cards is None:
+        phase("ring_8m_distinct_cards", distinct_cards=repr("skipped: 1 card"))
+    else:
+        ring, cards_s, cards_peak, ring_cards_launches = measured(
+            lambda: ring_cuda.banded_adjacency_ring(lib.packed, bounds, TOL_INT, mesh=cards, n=N_SCALE),
+            counters, dev)
+        require(same_pairs(ring, pairs), f"ring_8m_distinct_cards: {len(ring[0])} pairs,"
+                f" the slabbed sweep {len(pairs[0])}")
+        require(ring_cards_launches["band_counts"] >= cards.size and ring_cards_launches["band_sweep"] == 0,
+                f"ring_8m_distinct_cards: launches {ring_cards_launches}")
+        phase("ring_8m_distinct_cards", bound="exact", mesh=repr(cards), pairs=len(ring[0]),
+              seconds=round(cards_s, 3), slabbed_sweep_s=round(sweep_s, 3),
+              ratio=round(cards_s / sweep_s, 3), card0_peak_bytes=cards_peak,
+              launches=json.dumps(ring_cards_launches), **ring_fields(ring_cuda.LAST_RING_PHASES))
+        del ring
 
     # (b) K2 and K3 on three sampled slabs against the plain versions: the
     # row tiles around the first, the middle and the last planted cluster,
@@ -795,7 +870,8 @@ def scale_8m_phase(dev, vdf, hc, hb) -> dict:
           **d_steps.fields(), peak_bytes=refs_peak,
           launches=json.dumps(refs_launches))
     return dict(slabs=len(slabs), ranges=len(ranges), sweep=sweep_launches, band=band_launches,
-                search=search_launches, refs=refs_launches, ring=ring_launches, k2_ms=k2_ms, k2_bound_ms=k2_bound_ms,
+                search=search_launches, refs=refs_launches, ring=ring_launches,
+                ring_cards=ring_cards_launches, k2_ms=k2_ms, k2_bound_ms=k2_bound_ms,
                 k3_call_ms=k3_ms, hit_tiles=n_hits, k4_ms=k4_ms, k4_bound_ms=k4_bound_ms,
                 sweep_s=sweep_s, band_s=band_s, sweep_peak=sweep_peak, band_peak=band_peak)
 
@@ -810,22 +886,27 @@ def card_mesh(dev, shards: int):
 
 def ring_phases(dev, vdf, hc, packed, bounds, pairs, hashes, groups) -> dict:
     """``ring_1m``: the 1M library through ``banded_adjacency_ring`` on 4 and
-    on 16 shards of the card (bands across one block, and across two),
+    on 16 shards of the card (bands across one block, and across three),
     beside the single-card sweep from the same host matrix in this call;
-    over up to 4 distinct cards where the host has them; and the public
-    ``search(backend="ring")`` on its default mesh (every visible card).
-    Returns each run's K2/K3 launches."""
+    over up to 4 distinct cards where the host has them; the public
+    ``search(backend="ring")`` on its default mesh (every visible card);
+    and, on several cards, ``auto_ring_1m``: ``search()`` with the
+    multi-card rule as a user finds it, which must take the ring exactly
+    where the rule says so (and, where its default minimum lies above 1M,
+    again with ``VDF_RING_MIN_N`` at 1M, where it must).  Returns each
+    run's K2/K3 launches."""
+    from vid_dup_finder_lib_tpu_torch.ops import hamming as ops_hamming
     from vid_dup_finder_lib_tpu_torch.parallel import ring_cuda
-    from vid_dup_finder_lib_tpu_torch.parallel.mesh import Mesh, make_mesh
+    from vid_dup_finder_lib_tpu_torch.parallel.mesh import make_mesh
 
     counters = (hc.band_counts, hc.band_pack)
     single, single_s, single_peak, single_launches = measured(
         lambda: hc.banded_adjacency_cuda(hc.SearchState(packed, bounds, dev), TOL_INT), counters, dev)
     require(same_pairs(single, pairs), "ring_1m: the single-card sweep's pairs changed")
     meshes = {f"{s}_shards": card_mesh(dev, s) for s in RING_SHARDS}
-    cards = torch.cuda.device_count()
-    if cards >= 2:
-        meshes["distinct_cards"] = Mesh([torch.device("cuda", i) for i in range(min(4, cards))])
+    cards = cards_mesh()
+    if cards is not None:
+        meshes["distinct_cards"] = cards
     launched = {}
     for name, mesh in meshes.items():
         got, seconds, peak, launches = measured(
@@ -842,8 +923,8 @@ def ring_phases(dev, vdf, hc, packed, bounds, pairs, hashes, groups) -> dict:
               seconds=round(seconds, 4), single_card_s=round(single_s, 4),
               ratio=round(seconds / single_s, 3), peak_bytes=peak, single_card_peak_bytes=single_peak,
               launches=json.dumps(launches), single_card_launches=json.dumps(single_launches),
-              phases=json.dumps({k: round(v, 4) if isinstance(v, float) else v for k, v in ph.items()}))
-    if "distinct_cards" not in meshes:
+              **ring_fields(ph))
+    if cards is None:
         phase("ring_1m_distinct_cards", distinct_cards=repr("skipped: 1 card"))
     ring_groups, seconds, peak, launches = measured(
         lambda: vdf.search(hashes, TOLERANCE, backend="ring", device=dev), counters, dev)
@@ -852,6 +933,25 @@ def ring_phases(dev, vdf, hc, packed, bounds, pairs, hashes, groups) -> dict:
     launched["search"] = launches
     phase("ring_1m_search", groups=len(ring_groups), mesh=repr(make_mesh(device=dev)),
           seconds=round(seconds, 4), peak_bytes=peak, launches=json.dumps(launches))
+    if cards is None:
+        phase("auto_ring_1m", distinct_cards=repr("skipped: 1 card"))
+        return launched
+    runs = [None] if N_LIBRARY >= ops_hamming.RING_MIN_N else [None, str(N_LIBRARY)]
+    for min_n in runs:
+        with environ(VDF_AUTO_RING=None, VDF_RING_MIN_N=min_n):
+            rule = N_LIBRARY >= int(min_n or ops_hamming.RING_MIN_N) and ring_cuda.ring_capacity_ok(
+                N_LIBRARY, bounds, torch.cuda.device_count())
+            ring_cuda.LAST_RING_PHASES = {}
+            auto_groups, seconds, peak, launches = measured(
+                lambda: vdf.search(hashes, TOLERANCE, device=dev), counters, dev)
+        ph = ring_cuda.LAST_RING_PHASES
+        require(auto_groups == groups, "auto_ring_1m: groups differ from backend='device'")
+        require(bool(ph) == rule, f"auto_ring_1m: the ring ran: {bool(ph)}, the rule says {rule}")
+        require(not rule or ph["shards"] == cards.size, f"auto_ring_1m: {ph.get('shards')} shards")
+        launched["auto_ring_1m" if min_n is None else "auto_ring_1m_min_1m"] = launches
+        phase("auto_ring_1m", ring_min_n=int(min_n or ops_hamming.RING_MIN_N), took_ring=bool(ph),
+              groups=len(auto_groups), seconds=round(seconds, 4), card0_peak_bytes=peak,
+              launches=json.dumps(launches), **(ring_fields(ph) if ph else {}))
     return launched
 
 
@@ -860,22 +960,23 @@ def refs_sharded_phase(dev, vdf, hc, refs, cands, lo, hi, pairs, ref_hashes, can
     """``refs_sharded_10k_x_1m``: the refs phase's inputs with the references
     split over 4 shards of the card, candidates replicated once per card;
     then the public ``search_with_references`` with ``VDF_REFS_SHARDED=1``
-    (its default mesh).  Returns the K2/K3 launches of both."""
-    from vid_dup_finder_lib_tpu_torch.parallel.refs_sharded import refs_adjacency_sharded
+    (its default mesh).  With several cards, ``..._distinct_cards``: the
+    references split over every card (the candidates up once, then card to
+    card), and the public search with ``VDF_REFS_SHARDED`` unset, which
+    stays on one card (the multi-card rule is off: sharded, it lost to one
+    card at every size measured).  Returns the K2/K3 launches of each."""
+    from vid_dup_finder_lib_tpu_torch.parallel import refs_sharded as rs
 
     counters = (hc.band_counts, hc.band_pack)
     got, seconds, peak, launches = measured(
-        lambda: refs_adjacency_sharded(refs, lo, hi, TOL_INT, cands_packed=cands,
-                                       mesh=card_mesh(dev, 4)), counters, dev)
+        lambda: rs.refs_adjacency_sharded(refs, lo, hi, TOL_INT, cands_packed=cands,
+                                          mesh=card_mesh(dev, 4)), counters, dev)
     require(same_pairs(got, pairs), f"refs_sharded: {len(got[0])} pairs, one card {len(pairs[0])}")
     require(launches["band_counts"] == 4 and launches["band_pack"] > 0, f"refs_sharded: {launches}")
-    os.environ["VDF_REFS_SHARDED"] = "1"
-    try:
+    with environ(VDF_REFS_SHARDED="1"):
         public, public_s, public_peak, public_launches = measured(
             lambda: vdf.search_with_references(ref_hashes, cand_hashes, TOLERANCE, device=dev),
             counters, dev)
-    finally:
-        del os.environ["VDF_REFS_SHARDED"]
     require(public == ref_groups and len(public) == N_REFS // REFS_PLANT_EVERY,
             f"refs_sharded: the public search found {len(public)} groups")
     require(public_launches["band_counts"] > 0, f"refs_sharded (public): {public_launches}")
@@ -883,7 +984,35 @@ def refs_sharded_phase(dev, vdf, hc, refs, cands, lo, hi, pairs, ref_hashes, can
           planted_found=len(public), seconds=round(seconds, 4), peak_bytes=peak,
           launches=json.dumps(launches), public_seconds=round(public_s, 4),
           public_launches=json.dumps(public_launches))
-    return {"shards": launches, "public": public_launches}
+    out = {"shards": launches, "public": public_launches}
+    cards = cards_mesh()
+    if cards is None:
+        phase("refs_sharded_10k_x_1m_distinct_cards", distinct_cards=repr("skipped: 1 card"))
+        return out
+    got, seconds, peak, launches = measured(
+        lambda: rs.refs_adjacency_sharded(refs, lo, hi, TOL_INT, cands_packed=cands, mesh=cards),
+        counters, dev)
+    require(same_pairs(got, pairs), f"refs_sharded (cards): {len(got[0])} pairs, one card {len(pairs[0])}")
+    require(launches["band_counts"] >= cards.size and launches["band_pack"] > 0,
+            f"refs_sharded (cards): {launches}")
+    calls = []
+    real = rs.refs_adjacency_sharded
+    rs.refs_adjacency_sharded = lambda *a, **kw: calls.append(kw["mesh"]) or real(*a, **kw)
+    try:
+        with environ(VDF_REFS_SHARDED=None):
+            public, public_s, public_peak, public_launches = measured(
+                lambda: vdf.search_with_references(ref_hashes, cand_hashes, TOLERANCE, device=dev),
+                counters, dev)
+    finally:
+        rs.refs_adjacency_sharded = real
+    require(public == ref_groups, "refs_sharded (cards): the public search's groups differ")
+    require(not calls, "refs_sharded (cards): the public search sharded with VDF_REFS_SHARDED unset")
+    phase("refs_sharded_10k_x_1m_distinct_cards", bound="exact", mesh=repr(cards), pairs=len(got[0]),
+          seconds=round(seconds, 4), card0_peak_bytes=peak, launches=json.dumps(launches),
+          public_sharded=bool(calls), public_seconds=round(public_s, 4),
+          public_launches=json.dumps(public_launches))
+    out.update(distinct_cards=launches, distinct_cards_public=public_launches)
+    return out
 
 
 def sharded_hash_phase(dev, hash_cubes, cubes, words) -> int:
@@ -1167,6 +1296,12 @@ def main() -> int:
     phase("env", torch=torch.__version__, cuda=torch.version.cuda,
           device=repr(torch.cuda.get_device_name(0)),
           count=torch.cuda.device_count(), smi=repr(smi))
+
+    # the one-card phases stay on one card on a host with several: the
+    # multi-card rules are off except inside auto_ring_1m and the
+    # distinct-card references phase, which turn them on
+    os.environ["VDF_AUTO_RING"] = "0"
+    os.environ["VDF_REFS_SHARDED"] = "0"
 
     t0 = time.perf_counter()
     cuda_build.load_library()
@@ -1699,9 +1834,11 @@ def main() -> int:
              new_phase_launches={
                  **{f"library_1m_{k}": v["band_counts"] for k, v in lib_launches.items()},
                  **{f"scale_8m_{k}": scale[k]["band_counts"] for k in ("sweep", "search", "refs")},
-                 **{f"ring_1m_{k}": v["band_counts"] for k, v in ring_launches.items()},
+                 **{phase_name("ring_1m", k): v["band_counts"] for k, v in ring_launches.items()},
                  **{f"refs_sharded_10k_x_1m_{k}": v["band_counts"] for k, v in refs_sharded_launches.items()},
-                 "ring_8m": scale["ring"]["band_counts"]}),
+                 "ring_8m": scale["ring"]["band_counts"],
+                 **({"ring_8m_distinct_cards": scale["ring_cards"]["band_counts"]}
+                    if scale["ring_cards"] else {})}),
         dict(name="band_pack_kernel", route="cuda", source=csrc + "hamming_band.cu",
              replaces="vid_dup_finder_lib_tpu/ops/hamming_pallas.py:130",
              launches=launches["band_pack"], max_abs_err=k3_err,
@@ -1719,9 +1856,11 @@ def main() -> int:
              new_phase_launches={
                  **{f"library_1m_{k}": v["band_pack"] for k, v in lib_launches.items()},
                  **{f"scale_8m_{k}": scale[k]["band_pack"] for k in ("sweep", "search", "refs")},
-                 **{f"ring_1m_{k}": v["band_pack"] for k, v in ring_launches.items()},
+                 **{phase_name("ring_1m", k): v["band_pack"] for k, v in ring_launches.items()},
                  **{f"refs_sharded_10k_x_1m_{k}": v["band_pack"] for k, v in refs_sharded_launches.items()},
-                 "ring_8m": scale["ring"]["band_pack"]}),
+                 "ring_8m": scale["ring"]["band_pack"],
+                 **({"ring_8m_distinct_cards": scale["ring_cards"]["band_pack"]}
+                    if scale["ring_cards"] else {})}),
         dict(name="band_sweep_kernel", route="cuda", source=csrc + "band_sweep.cu",
              replaces="vid_dup_finder_lib_tpu/ops/hamming_band.py:50",
              launches=band_launches["band_sweep"], max_abs_err=k4_err,

@@ -733,7 +733,7 @@ def _card_mesh(dev, shards):
 @pytest.mark.parametrize("shards", [4, 16])
 def test_ring_on_shards_of_one_card_matches_the_single_card_sweep(dev, shards, budget):
     """The zero and all-ones hashes at block edges, bands across one block
-    (4 shards) and two (16): K2 + K3 per (shard, step), from the host
+    (4 shards) and three (16): K2 + K3 per (shard, step), from the host
     matrix and from a resident buffer, equal to the one-state sweep."""
     from tests.test_torch_parallel import guard_inputs
     from vid_dup_finder_lib_tpu_torch.parallel import ring_cuda
@@ -751,7 +751,7 @@ def test_ring_on_shards_of_one_card_matches_the_single_card_sweep(dev, shards, b
         ph = ring_cuda.LAST_RING_PHASES
         assert ph["band_counts"] == hc.band_counts.launches - k2 >= shards
         assert ph["band_pack"] == hc.band_pack.launches - k3 >= 1
-        assert ph["k_max"] == (1 if shards == 4 else 2) and ph["rotated_bytes"] > 0
+        assert ph["k_max"] == (1 if shards == 4 else 3) and ph["rotated_bytes"] > 0
 
 
 def test_refs_sharded_on_shards_of_one_card(dev):
@@ -859,6 +859,67 @@ def test_refs_sharded_hash_and_scan_over_distinct_cards(dev):
     durs = np.sort(rng.integers(50, 400, 1500))
     for a, b in zip(ring_candidate_scan(mesh, packed, durs, 470), scan_reference(packed, durs, 470)):
         assert np.array_equal(a, b)
+
+
+def test_balanced_ring_and_refs_over_distinct_cards_match_one_card(dev):
+    """chip_smoke's recipe at 262,144 hashes (durations 30-7200 s, planted
+    clusters) over every card, blocks cut at equal in-band pairs: every
+    block holds its share within one tile's rows, and the pairs are the
+    one-card sweep's; then 1,000 references cut at equal window pairs."""
+    import chip_smoke as cs
+    from vid_dup_finder_lib_tpu_torch.parallel import ring_cuda
+    from vid_dup_finder_lib_tpu_torch.parallel.mesh import Mesh
+    from vid_dup_finder_lib_tpu_torch.parallel.refs_sharded import refs_adjacency_sharded
+
+    mesh = Mesh(_cards(dev))
+    packed, durations, starts = cs.planted_library(1 << 18, seed=3, n_clusters=40)
+    bounds = cs.self_bounds(durations)
+    want = hc.banded_adjacency_cuda(hc.SearchState(packed, bounds, dev), 350)
+    assert cs.same_pairs(want, cs.planted_pairs(starts))
+    got = ring_cuda.banded_adjacency_ring(packed, bounds, 350, mesh=mesh)
+    assert cs.same_pairs(got, want)
+    ph = ring_cuda.LAST_RING_PHASES
+    shares = np.array([sum(p) for p in ph["shard_pairs"]])
+    tile_pairs = 2 * hc.TILE * int((np.minimum(bounds, len(bounds)) - np.arange(len(bounds))).max())
+    assert len(shares) == mesh.size and np.abs(shares - shares.mean()).max() <= tile_pairs
+    rng = np.random.default_rng(4)
+    ref_durs = np.sort(rng.integers(30, 7200, 1000))
+    lo = np.searchsorted(durations, (ref_durs * 0.95).astype(np.int64), "left")
+    hi = np.searchsorted(durations, (ref_durs * 1.05).astype(np.int64), "right")
+    refs = packed[np.minimum(lo, len(packed) - 1)].copy()  # each a copy of its window's first
+    want = hc.refs_adjacency_cuda(hc.RefsState(refs, packed, lo, hi, dev), 350)
+    assert len(want[0]) >= 1000
+    got = refs_adjacency_sharded(refs, lo, hi, 350, cands_packed=packed, mesh=mesh)
+    assert cs.same_pairs(got, want)
+
+
+def test_staging_concurrent_uploads_to_two_cards_arrive_exact(dev):
+    """Two threads upload through the one pinned staging buffer at once,
+    each to a card of its own, many times: every byte arrives."""
+    import threading
+
+    from vid_dup_finder_lib_tpu_torch.utils import staging
+
+    cards = _cards(dev)[:2]
+    rng = np.random.default_rng(23)
+    hosts = [rng.integers(0, 256, (2 * staging.HALF_BYTES + 4097 * k,), dtype=np.uint8)
+             for k in (1, 2)]
+    got = [[], []]
+
+    def upload(k):
+        for _ in range(6):
+            got[k].append(staging.to_device(hosts[k], cards[k]))
+
+    threads = [threading.Thread(target=upload, args=(k,)) for k in (0, 1)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=120)
+    assert not any(t.is_alive() for t in threads)
+    for k in (0, 1):
+        assert len(got[k]) == 6
+        for g in got[k]:
+            assert g.device == cards[k] and torch.equal(g.cpu(), torch.from_numpy(hosts[k]))
 
 
 # -- uploads through the pinned staging buffer ------------------------------------

@@ -12,6 +12,7 @@ exactly.
 """
 
 import importlib
+import threading
 
 import numpy as np
 import pytest
@@ -62,21 +63,30 @@ def cpu_mesh(shards: int) -> Mesh:
     return Mesh([CPU] * shards)
 
 
+def two_device_mesh(shards: int) -> Mesh:
+    """``shards`` CPU shards on two devices in alternation, ``cpu`` and
+    ``cpu:0`` (equal as places, distinct as keys), as a mesh of two cards
+    holds them: :func:`run_by_device` runs each device's jobs from a
+    thread of its own, and blocks are copied between the two."""
+    return Mesh([CPU, torch.device("cpu", 0)] * (shards // 2))
+
+
 @pytest.fixture
 def two_threads(monkeypatch):
-    """The shards' jobs keyed to two devices by parity, as :func:`run_by_device`
-    keys the shards of a mesh of two cards: their sweeps run from two
-    threads (the CPU is one device, so a mesh of CPU shards runs inline)."""
+    """The threads of every :func:`run_by_device` call of the ring and of
+    the references search: one list per call, of each job's thread."""
     real = port_mesh.run_by_device
-    keyed = []
+    seen = []
 
-    def by_parity(jobs):
-        keyed.append(len(jobs))
-        return real([(torch.device("cpu", k % 2), fn) for k, (_, fn) in enumerate(jobs)])
+    def recorded(jobs):
+        threads = []
+        seen.append(threads)
+        return real([(dev, lambda fn=fn: threads.append(threading.current_thread()) or fn())
+                     for dev, fn in jobs])
 
     for mod in (ring_cuda, port_refs_sharded):
-        monkeypatch.setattr(mod, "run_by_device", by_parity)
-    return keyed
+        monkeypatch.setattr(mod, "run_by_device", recorded)
+    return seen
 
 
 def _bounds(durs: np.ndarray) -> np.ndarray:
@@ -177,6 +187,98 @@ def test_ring_matches_the_jax_ring(ring_700, tol):
     assert got[0].dtype == got[1].dtype == np.int64
 
 
+@pytest.fixture(scope="module")
+def jax_ring_8(ring_700):
+    """The JAX package's ring of ``ring_700`` on its 8 virtual chips, at 480."""
+    packed, bounds = ring_700
+    return jax_ring(packed, bounds, 480, mesh=jax_make_mesh(8))
+
+
+@pytest.mark.parametrize("shards", [8, 16])
+def test_ring_on_more_shards_matches_the_jax_ring(ring_700, jax_ring_8, shards):
+    """The port's ring on 8 and 16 CPU shards (blocks cut at equal work,
+    down to one tile of rows) against the JAX package's ring on 8 chips."""
+    packed, bounds = ring_700
+    got = banded_adjacency_ring(packed, bounds, 480, mesh=cpu_mesh(shards))
+    assert _equal(got, jax_ring_8) and len(got[0]) > 0
+    assert ring_cuda.LAST_RING_PHASES["shards"] == len(ring_cuda.ring_cuts(bounds, shards)) - 1 > 1
+
+
+def assert_balanced(work: np.ndarray, cuts: np.ndarray, shards: int) -> None:
+    """``cuts`` start non-empty blocks on 128-row tiles (the last ends at
+    n), at most ``shards`` of them, and each cut lies where the running
+    sum of ``work`` is within one tile's rows of its share: off by no
+    more than the work of the 128 rows on either side of it."""
+    n = len(work)
+    assert cuts[0] == 0 and cuts[-1] == n and (np.diff(cuts) > 0).all()
+    assert len(cuts) - 1 <= shards and not (cuts[1:-1] % ring_cuda.TILE).any()
+    before = np.concatenate([[0], np.cumsum(work)])
+    total = before[-1]
+    for c in cuts[1:-1]:
+        k = round(before[c] * shards / total)
+        near = before[min(c + ring_cuda.TILE, n)] - before[max(c - ring_cuda.TILE, 0)]
+        assert abs(before[c] - k * total / shards) <= near
+    if n >= shards * ring_cuda.TILE * 4:  # room for every shard: one block each
+        assert len(cuts) - 1 == shards
+
+
+@pytest.mark.parametrize("shards", [2, 4, 8, 16])
+@pytest.mark.parametrize("library", ["uniform", "equal durations", "below shards x 128"])
+def test_ring_cuts_hold_equal_pairs_within_one_tile(library, shards):
+    """The ring's cuts at equal in-band pairs on the bench recipe's uniform
+    durations (30-7200 s), on one duration for all (a triangle of pairs),
+    and on fewer rows than ``shards`` tiles."""
+    rng = np.random.default_rng(shards)
+    n = {"uniform": 200_000, "equal durations": 50_000, "below shards x 128": shards * 128 - 77}[library]
+    durs = np.sort(rng.integers(30, 7200, n)) if library != "equal durations" else np.full(n, 600)
+    bounds = np.minimum(_bounds(durs), n)
+    cuts = ring_cuda.ring_cuts(bounds, shards)
+    assert_balanced(np.maximum(bounds - np.arange(n), 1), cuts, shards)
+    if library == "below shards x 128":
+        assert len(cuts) - 1 <= -(-n // ring_cuda.TILE) <= shards
+
+
+def test_ring_cuts_at_1m_balance_the_pairs_where_equal_rows_do_not():
+    """chip_smoke's 1M library (``bench.py``'s recipe): the four blocks hold
+    25% of the 4.587e10 in-band pairs each within 0.01 points, at rows
+    474,624 / 672,896 / 825,216, where equal row blocks hold 7.0, 20.7,
+    34.4 and 37.9%; the per-(shard, step) pairs the ring reports add up."""
+    import chip_smoke as cs
+
+    _, durations, _ = cs.planted_library(1_000_000, cs.SEED, n_clusters=0)
+    bounds = np.minimum(cs.self_bounds(durations), len(durations))
+    cuts = ring_cuda.ring_cuts(bounds, 4)
+    assert cuts.tolist() == [0, 474_624, 672_896, 825_216, 1_000_000]
+    s_max, _ = ring_cuda._plan(bounds, cuts)
+    cum = ring_cuda.ring_work(bounds)
+    shares = np.array([sum(ring_cuda._block_pairs(bounds, cum, cuts, d, s) for s in range(last + 1))
+                       for d, last in enumerate(s_max)])
+    total = int(np.maximum(bounds - np.arange(1, len(bounds) + 1), 0).sum())
+    assert shares.sum() == total and abs(total - 4.587e10) < 1e8
+    assert np.abs(shares / total - 0.25).max() < 1e-4
+    rows = np.minimum(np.arange(5) * 250_112, 1_000_000)
+    equal = np.diff(np.concatenate([[0], np.cumsum(np.maximum(bounds - np.arange(1, len(bounds) + 1), 0))])[rows])
+    assert np.round(100 * equal / total, 1).tolist() == [7.0, 20.7, 34.4, 37.9]
+
+
+def test_ring_reports_each_shard_and_step(guard_16k):
+    """``LAST_RING_PHASES``: the block starts, each (shard, step)'s
+    seconds and in-band pairs (they add up to the band's), and the two
+    projected walls on distinct cards."""
+    packed, bounds, _ = guard_16k
+    banded_adjacency_ring(packed, bounds, 350, mesh=cpu_mesh(8))
+    ph = ring_cuda.LAST_RING_PHASES
+    n = len(bounds)
+    assert ph["cuts"] == ring_cuda.ring_cuts(np.minimum(bounds, n), 8).tolist()
+    assert [len(t) for t in ph["shard_s"]] == [len(p) for p in ph["shard_pairs"]]
+    assert max(len(t) for t in ph["shard_s"]) == ph["steps"]
+    assert sum(map(sum, ph["shard_pairs"])) == np.maximum(np.minimum(bounds, n) - np.arange(1, n + 1), 0).sum()
+    per_step = [max(t[s] for t in ph["shard_s"] if s < len(t)) for s in range(ph["steps"])]
+    assert ph["projected_wall_s"] == pytest.approx(sum(per_step))
+    assert ph["projected_free_s"] == pytest.approx(max(map(sum, ph["shard_s"])))
+    assert 0 < ph["projected_free_s"] <= ph["projected_wall_s"] <= ph["sweep"]
+
+
 def guard_inputs() -> tuple[np.ndarray, np.ndarray]:
     """The inputs of tests/test_parallel.py::test_ring_windowed_and_zero_hash_guard:
     all-zero and all-ones hashes at block edges, whose match with a zero
@@ -206,10 +308,11 @@ def guard_16k():
     return packed, bounds, want
 
 
-@pytest.mark.parametrize("shards, k_max", [(4, 1), (8, 1), (16, 2)])
+@pytest.mark.parametrize("shards, k_max", [(4, 1), (8, 2), (16, 3)])
 def test_ring_matches_the_jax_host_sweep(guard_16k, shards, k_max):
-    """Bands that reach into the next block, and with 16 shards of 1,024
-    rows into the one after it."""
+    """Bands that reach into the next block, and with 8 and 16 shards into
+    the ones after it (the blocks are cut at equal work, so the last ones,
+    whose rows have the widest bands, are the shortest)."""
     packed, bounds, want = guard_16k
     got = banded_adjacency_ring(packed, bounds, 350, mesh=cpu_mesh(shards))
     assert _equal(got, want)
@@ -222,10 +325,15 @@ def test_ring_matches_the_jax_host_sweep(guard_16k, shards, k_max):
 
 
 def test_ring_swept_from_two_threads_matches_the_jax_host_sweep(guard_16k, two_threads):
-    """The shards of each step swept from two threads, as on two cards."""
+    """16 shards on two devices in alternation, as on two cards: every
+    (shard, step) of the ring in one call, each device's from a thread of
+    its own, with blocks copied between the devices."""
     packed, bounds, want = guard_16k
-    got = banded_adjacency_ring(packed, bounds, 350, mesh=cpu_mesh(16), counts_budget=256)
-    assert _equal(got, want) and two_threads[0] == 16 and len(two_threads) == 3
+    got = banded_adjacency_ring(packed, bounds, 350, mesh=two_device_mesh(16), counts_budget=256)
+    ph = ring_cuda.LAST_RING_PHASES
+    assert _equal(got, want) and len(two_threads) == 1
+    assert len(two_threads[0]) == sum(len(t) for t in ph["shard_s"]) > 16
+    assert len(set(two_threads[0])) == 2
 
 
 def test_ring_in_small_slabs_matches_the_jax_host_sweep(guard_16k):
@@ -262,7 +370,7 @@ def test_ring_edge_sizes_match_the_jax_host_sweep(ring_700, n, shards):
     want = banded_adjacency_host(packed, bounds, 350)
     copies = len(range(0, n, 3))
     assert _equal(got, want) and len(got[0]) == copies * (copies - 1) // 2
-    owners = -(-n // ring_cuda.shard_rows(n, shards)) if n else 0
+    owners = len(ring_cuda.ring_cuts(np.minimum(bounds, n), shards)) - 1
     assert ring_cuda.LAST_RING_PHASES["shards"] == owners
     assert owners == {0: 0, 5: 1, 200: 2, 700: 1}[n]
 
@@ -270,15 +378,17 @@ def test_ring_edge_sizes_match_the_jax_host_sweep(ring_700, n, shards):
 def test_ring_plan_reaches_every_block_of_a_band():
     """Shard d sweeps block d + s for every s up to the block its widest
     row reaches; blocks pass through the shards in between."""
-    n, ns = 1000, 128
+    n = 1000
     bounds = np.minimum(np.arange(n) + 1, n)
+    cuts = np.array([0, 128, 256, 384, 512, 640, 768, 896, 1000])
+    assert np.array_equal(ring_cuda.ring_cuts(bounds, 8), cuts)  # no pairs: equal rows
     bounds[0] = 400  # row 0 reaches block 3
-    s_max, holds = ring_cuda._plan(bounds, n, ns)
+    s_max, holds = ring_cuda._plan(bounds, cuts)
     assert s_max == [3, 0, 0, 0, 0, 0, 0, 0]
     assert holds.shape == (4, 8)
     assert holds[1, :3].all() and holds[2, :2].all() and holds[3, 0]
     assert holds.sum() == 3 + 2 + 1
-    assert ring_cuda.shard_rows(1000, 8) == 128 and ring_cuda.shard_rows(1000, 3) == 384
+    assert ring_cuda.ring_cuts(np.minimum(np.arange(n) + 1, n), 3).tolist() == [0, 384, 640, 1000]
 
 
 def test_ring_capacity_ok_on_a_cpu_mesh():
@@ -325,7 +435,7 @@ def test_env_names_the_ring(monkeypatch, four_cpu_shards):
     monkeypatch.setenv("VDF_SEARCH_BACKEND", "ring")
     ring_cuda.LAST_RING_PHASES = {}
     groups = tvdf.search(hashes, 0.35, device="cpu")
-    assert ring_cuda.LAST_RING_PHASES["shards"] == 4  # 256 rows each
+    assert ring_cuda.LAST_RING_PHASES["shards"] == 4  # rows cut at 512, 640 and 896
     assert len(groups) == 512
     assert same_groups(groups, jvdf.search(jax_hashes(hashes), 0.35, backend="host"))
 
@@ -342,22 +452,86 @@ def test_ring_search_over_an_attached_library_takes_the_host_matrix(four_cpu_sha
     ring_cuda.LAST_RING_PHASES = {}
     got = tvdf.search(hashes, 0.35, backend="ring", device="cpu", device_library=lib,
                       library_paths=paths[::-1])
-    assert ring_cuda.LAST_RING_PHASES["shards"] == 4
+    assert ring_cuda.LAST_RING_PHASES["shards"] == 3  # rows cut at 256 and 384: 4 shards, 3 blocks
     assert got == tvdf.search(hashes, 0.35, backend="device", device="cpu") and len(got) == 250
 
 
-def test_auto_never_takes_the_ring(monkeypatch):
-    """``auto`` on a card runs the one-card two-phase sweep also where
-    several cards are visible: the ring runs only when asked for."""
-    monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
-    monkeypatch.setattr(port_hamming, "resolve_device", lambda device: torch.device("cuda", 0))
-    monkeypatch.setattr(port_hamming, "SearchState", lambda packed, bounds, dev: ("state", dev))
-    monkeypatch.setattr(port_hamming, "banded_adjacency_cuda", lambda state, tol: state)
+@pytest.fixture
+def visible_cards(monkeypatch):
+    """``auto`` on a card, with ``k`` cards visible: the one-card sweep
+    stubbed (it returns ``("one card", device)``), the ring over the CPU
+    mesh :func:`two_device_mesh` of 4 shards that ``make_mesh`` now gives."""
+    def set_cards(k):
+        monkeypatch.setattr(torch.cuda, "device_count", lambda: k)
+        monkeypatch.setattr(port_hamming, "resolve_device", lambda device: torch.device("cuda", 0))
+        monkeypatch.setattr(port_hamming, "SearchState", lambda packed, bounds, dev: ("one card", dev))
+        monkeypatch.setattr(port_hamming, "banded_adjacency_cuda", lambda state, tol: state)
+        monkeypatch.setattr(port_mesh, "make_mesh",
+                            lambda n_devices=None, device=None: two_device_mesh(4))
+    return set_cards
+
+
+def test_auto_never_takes_the_ring(monkeypatch, visible_cards):
+    """``auto`` on a card runs the one-card two-phase sweep at any size
+    where one card is visible, and where several are under
+    ``VDF_AUTO_RING=0``."""
     monkeypatch.setattr(ring_cuda, "banded_adjacency_ring", lambda *a, **kw: pytest.fail("ring"))
-    packed = np.zeros((2_000_000, 32), np.uint32)
-    got = port_hamming.banded_adjacency(packed, np.arange(1, 2_000_001), 350, device="cuda")
-    assert got == ("state", torch.device("cuda", 0))
-    assert not hasattr(port_hamming, "_auto_ring")
+    packed = np.broadcast_to(np.zeros((1, 32), np.uint32), (2 * port_hamming.RING_MIN_N, 32))
+    bounds = np.arange(1, packed.shape[0] + 1)
+    for cards, auto_ring in ((1, None), (4, "0")):
+        visible_cards(cards)
+        if auto_ring is not None:
+            monkeypatch.setenv("VDF_AUTO_RING", auto_ring)
+        got = port_hamming.banded_adjacency(packed, bounds, 350, device="cuda")
+        assert got == ("one card", torch.device("cuda", 0))
+
+
+def small_library(n: int, seed: int = 5) -> tuple[np.ndarray, np.ndarray]:
+    """``n`` random hashes in pairs of copies at shared durations, sorted."""
+    rng = np.random.default_rng(seed)
+    packed = rng.integers(0, 2**32, (n, 32), dtype=np.uint64).astype(np.uint32)
+    packed[1::2] = packed[::2][: n // 2]
+    durs = np.sort(np.repeat(rng.integers(30, 7200, -(-n // 2)), 2)[:n])
+    return packed, _bounds(durs)
+
+
+@pytest.mark.parametrize("case, takes_ring", [
+    ("at the minimum", True), ("above it", True), ("below it", False),
+    ("VDF_AUTO_RING=0", False), ("capacity fails", False), ("one card", False),
+])
+def test_auto_takes_the_ring_on_several_cards_from_the_minimum(
+        monkeypatch, visible_cards, case, takes_ring):
+    """With 4 cards visible, ``auto`` takes the ring over every card from
+    ``VDF_RING_MIN_N`` hashes up while ``VDF_AUTO_RING`` is 1 and
+    ``ring_capacity_ok`` passes (``ops/hamming.py:466-499``); its pairs
+    are the JAX package's host sweep's."""
+    n = 1024
+    visible_cards(1 if case == "one card" else 4)
+    monkeypatch.setenv("VDF_RING_MIN_N", str({"above it": n - 1, "below it": n + 1}.get(case, n)))
+    if case == "VDF_AUTO_RING=0":
+        monkeypatch.setenv("VDF_AUTO_RING", "0")
+    if case == "capacity fails":
+        monkeypatch.setattr(ring_cuda, "ring_capacity_ok", lambda n, bounds, n_dev, mesh=None: False)
+    packed, bounds = small_library(n)
+    ring_cuda.LAST_RING_PHASES = {}
+    got = port_hamming.banded_adjacency(packed, bounds, 350, device="cuda")
+    if takes_ring:
+        assert _equal(got, banded_adjacency_host(packed, bounds, 350)) and len(got[0]) == n // 2
+        assert ring_cuda.LAST_RING_PHASES["shards"] == 4
+    else:
+        assert got == ("one card", torch.device("cuda", 0)) and not ring_cuda.LAST_RING_PHASES
+
+
+def test_auto_ring_minimum_defaults_to_the_measured_cut_over(monkeypatch, visible_cards):
+    """Unset, ``VDF_RING_MIN_N`` is :data:`RING_MIN_N`."""
+    visible_cards(4)
+    monkeypatch.delenv("VDF_RING_MIN_N", raising=False)
+    monkeypatch.setattr(ring_cuda, "banded_adjacency_ring", lambda *a, **kw: "ring")
+    monkeypatch.setattr(ring_cuda, "ring_capacity_ok", lambda n, bounds, n_dev, mesh=None: True)
+    for n, want in ((port_hamming.RING_MIN_N - 1, ("one card", torch.device("cuda", 0))),
+                    (port_hamming.RING_MIN_N, "ring")):
+        packed = np.broadcast_to(np.zeros((1, 32), np.uint32), (n, 32))
+        assert port_hamming.banded_adjacency(packed, np.arange(1, n + 1), 350, device="cuda") == want
 
 
 # -- the references search ----------------------------------------------------
@@ -373,7 +547,7 @@ def refs_problem():
     return cands, refs, lo, hi, (ei[order], ej[order])
 
 
-@pytest.mark.parametrize("shards", [4, 8])
+@pytest.mark.parametrize("shards", [4, 8, 16])
 def test_refs_sharded_matches_the_jax_oracle(refs_problem, shards):
     cands, refs, lo, hi, want = refs_problem
     assert len(want[0]) > 300
@@ -381,10 +555,28 @@ def test_refs_sharded_matches_the_jax_oracle(refs_problem, shards):
     assert _equal(got, want)
 
 
+@pytest.mark.parametrize("shards", [2, 4, 8, 16])
+def test_refs_cuts_hold_equal_window_pairs_within_one_tile(shards):
+    """``tools/bench_refs.py``'s recipe, 10,000 references against
+    1,000,000 candidates: the references cut at equal window pairs
+    ``sum(hi - lo)`` (each reference also counted once)."""
+    rng = np.random.default_rng(0)
+    cand_durs = np.sort(rng.integers(30, 7200, 1_000_000))
+    ref_durs = np.sort(rng.integers(30, 7200, 10_000))
+    lo = np.searchsorted(cand_durs, (ref_durs * 0.95).astype(np.int64), "left")
+    hi = np.searchsorted(cand_durs, (ref_durs * 1.05).astype(np.int64), "right")
+    work = hi - lo + 1
+    cuts = ring_cuda.work_cuts(work, shards)
+    assert_balanced(work, cuts, shards)
+    assert len(cuts) - 1 == shards
+
+
 def test_refs_sharded_from_two_threads_matches_the_jax_oracle(refs_problem, two_threads):
     cands, refs, lo, hi, want = refs_problem
-    got = refs_adjacency_sharded(refs, lo, hi, 300, cands_packed=cands, mesh=cpu_mesh(8))
-    assert _equal(got, want) and two_threads == [3]  # 3 shards of 128 refs hold them all
+    got = refs_adjacency_sharded(refs, lo, hi, 300, cands_packed=cands, mesh=two_device_mesh(8))
+    blocks = len(ring_cuda.work_cuts(hi - lo + 1, 8)) - 1
+    assert _equal(got, want) and len(two_threads) == 1 and len(two_threads[0]) == blocks >= 2
+    assert len(set(two_threads[0])) == 2
 
 
 def test_refs_sharded_over_resident_candidates(refs_problem):

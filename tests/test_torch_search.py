@@ -10,6 +10,7 @@ and durations (:func:`jax_hashes`), and groups are compared as
 """
 
 import functools
+import importlib
 import json
 import os
 
@@ -224,3 +225,53 @@ def test_env_host_gives_the_jax_packages_groups(monkeypatch):
     theirs = jvdf.search(jax_hashes(hashes), 0.35)
     assert same_groups(ours, theirs)
     assert {frozenset(g.contained_paths()) for g in ours} == planted
+
+
+# -- VDF_REFS_SHARDED: the batched references search on several cards --------
+
+
+@pytest.fixture(scope="module")
+def refs_case():
+    """A library and references with planted matches, and the JAX
+    package's per-reference loop over them."""
+    from tests.test_refs_windowed import _make_cands_refs
+
+    cands, refs = _make_cands_refs(np.random.default_rng(41))
+    want = [jvdf.Search(cands).search_with_references([r], 0.47, consume=False)[0] for r in refs]
+    assert any(want)
+    return port_hashes(cands), port_hashes(refs), want
+
+
+@pytest.mark.parametrize("cards", [1, 4])
+@pytest.mark.parametrize("sharded", ["1", "0", None])
+def test_refs_sharded_rule_on_one_and_four_cards(monkeypatch, refs_case, sharded, cards):
+    """A Search on a card, ``cards`` cards visible: ``VDF_REFS_SHARDED=1``
+    shards the references over ``make_mesh`` (here 4 CPU shards on two
+    devices); ``0`` and unset keep them on one card, also where four
+    cards are visible (the JAX package's rule, ``search.py:604-613``, is
+    off in the port: on four H100s the sharded search never won).  Every
+    way gives the JAX package's groups."""
+    from vid_dup_finder_lib_tpu_torch.parallel import mesh as port_mesh
+    from vid_dup_finder_lib_tpu_torch.parallel import refs_sharded as port_refs_sharded
+    from vid_dup_finder_lib_tpu_torch.parallel.mesh import Mesh
+
+    port_search = importlib.import_module("vid_dup_finder_lib_tpu_torch.search")
+    cands, refs, want = refs_case
+    if sharded is None:
+        monkeypatch.delenv("VDF_REFS_SHARDED", raising=False)
+    else:
+        monkeypatch.setenv("VDF_REFS_SHARDED", sharded)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: cards)
+    mesh = Mesh(["cpu", "cpu:0"] * 2)
+    monkeypatch.setattr(port_mesh, "make_mesh", lambda n_devices=None, device=None: mesh)
+    calls = []
+    real_sharded = port_refs_sharded.refs_adjacency_sharded
+    monkeypatch.setattr(port_refs_sharded, "refs_adjacency_sharded",
+                        lambda *a, **kw: calls.append("sharded") or real_sharded(*a, **kw))
+    real_one = port_search.refs_adjacency
+    monkeypatch.setattr(port_search, "refs_adjacency",  # the one card, on the CPU
+                        lambda *a, device, **kw: calls.append("one card") or real_one(*a, device="cpu", **kw))
+    s = Search(cands, device="cpu")
+    s.device = torch.device("cuda", 0)  # a Search on a card, swept here by the CPU
+    assert s.search_with_references_batched(refs, 0.47) == want
+    assert calls == ["sharded" if sharded == "1" else "one card"]

@@ -15,13 +15,15 @@ Backends of :func:`banded_adjacency`:
   ``device``, the same way.
 * ``"ring"``: the two-phase sweep over the shards of
   ``parallel.mesh.make_mesh(device=device)`` (:mod:`..parallel.ring_cuda`):
-  every visible card, or one CPU shard.  Only when asked for: ``auto``
-  never takes it.  (The JAX package's ``auto`` does on several chips from
-  a size set for TPU chips, ``ops/hamming.py:466-499``; the port sets no
-  such size before it has measured one across cards.)
-* ``"auto"``: on a CUDA device the two-phase sweep; on the CPU the native
-  sweep when its library is available, else the two-phase sweep's plain
-  versions (the JAX package's choice on a host without an accelerator,
+  every visible card, or one CPU shard.
+* ``"auto"``: on a CUDA device the ring over every visible card where
+  more than one is visible, ``VDF_AUTO_RING`` is ``1`` (the default), the
+  library holds at least ``VDF_RING_MIN_N`` hashes (default
+  :data:`RING_MIN_N`) and ``ring_capacity_ok`` passes (the JAX package's
+  rule, ``ops/hamming.py:466-499``, with the port's own cut-over), else the
+  two-phase sweep on ``device``; on the CPU the native sweep when its
+  library is available, else the two-phase sweep's plain versions (the
+  JAX package's choice on a host without an accelerator,
   ``ops/hamming.py:544-565``).
 
 :func:`refs_adjacency` runs K2 + K3 in their per-row window mode.  A device
@@ -29,6 +31,8 @@ failure is an error, and an explicit backend never gives way to another.
 """
 
 from __future__ import annotations
+
+import os
 
 import numpy as np
 import torch
@@ -45,6 +49,12 @@ from .hamming_cuda import (
 )
 
 BACKENDS = ("auto", "device", "host", "band", "native", "ring")
+
+# auto on several cards: the ring from this many hashes up (VDF_RING_MIN_N).
+# On four H100s the ring over every card beat one card by more than the
+# runs' spread at 2,000,000 hashes and up; at 1,000,000 only in one call of
+# three; it lost at 262,144 and below (tools/torch_ring_cards.py, PERF.md)
+RING_MIN_N = 2_000_000
 
 _BIT_SHIFTS = np.arange(32, dtype=np.uint32)
 
@@ -122,8 +132,8 @@ def banded_adjacency(
             )
         return _banded_adjacency_native(packed, bounds, tolerance_int)
     dev = resolve_device(device)
-    if backend == "ring":
-        # imported here: a process that never asks for the ring loads none of it
+    if backend == "ring" or (backend == "auto" and _auto_ring(packed.shape[0], bounds, dev)):
+        # imported here: a process that never takes the ring loads none of it
         from ..parallel.mesh import make_mesh
         from ..parallel.ring_cuda import banded_adjacency_ring
 
@@ -131,6 +141,19 @@ def banded_adjacency(
     if backend == "auto" and dev.type == "cpu" and native.available():
         return _banded_adjacency_native(packed, bounds, tolerance_int)
     return banded_adjacency_cuda(SearchState(packed, bounds, dev), tolerance_int)
+
+
+def _auto_ring(n: int, bounds: np.ndarray, dev: torch.device) -> bool:
+    """``auto``'s multi-card rule: the ring over every visible card."""
+    if (dev.type != "cuda" or torch.cuda.device_count() < 2
+            or os.environ.get("VDF_AUTO_RING", "1") != "1"
+            or n < int(os.environ.get("VDF_RING_MIN_N", RING_MIN_N))):
+        return False
+    from ..parallel.mesh import make_mesh
+    from ..parallel.ring_cuda import ring_capacity_ok
+
+    mesh = make_mesh(device=dev)
+    return ring_capacity_ok(n, bounds, mesh.size, mesh=mesh)
 
 
 def _banded_adjacency_native(packed, bounds, tolerance_int):

@@ -4,13 +4,19 @@ Counterpart of ``vid_dup_finder_lib_tpu/parallel/refs_sharded.py``
 
 The duration-sorted references are split contiguously over the shards
 (``refs_sharded.py:87-96``), so each shard's candidate windows form a
-contiguous slab of the sorted candidates.  The packed candidates are
-replicated once per distinct device (128 B per hash); a shard on the device
-that already holds them resident uses them as they are.  Each shard runs
-K2 + K3 in their window mode (:class:`..ops.hamming_cuda.RefsState`,
-``refs_adjacency_cuda``, in slabs under the counts budget); no data moves
-between shards after the replication.  The shards of one card run in turn,
-those of distinct cards at once (:func:`.mesh.run_by_device`).
+contiguous slab of the sorted candidates.  The cuts fall at equal window
+pairs (:func:`.ring_cuda.work_cuts` over ``hi - lo``, each reference also
+counted once), rounded to the 128-row tile, where the JAX package cuts
+equal row blocks: a longer reference has a wider window.  The packed
+candidates are replicated once per distinct device (128 B per hash): they
+go up once, to the device that holds them resident or else the first
+device of the mesh, and from there card to card on copy streams
+(:func:`.ring_cuda.copy_after`).  Each shard runs K2 + K3 in their window
+mode (:class:`..ops.hamming_cuda.RefsState`, ``refs_adjacency_cuda``, in
+slabs under the counts budget), after the event behind its card's
+replica; no data moves between shards after the replication.  The shards
+of one card run in turn, those of distinct cards at once, one job per
+card (:func:`.mesh.run_by_device`).
 
 Not ported, for the reasons of ``ring_cuda``'s docstring: the sliding
 +/-1 column window (``_window_jits``, ``VDF_REFS_WINDOW_ROWS``), the
@@ -25,7 +31,7 @@ import torch
 
 from ..ops import hamming_cuda as hc
 from .mesh import Mesh, make_mesh, run_by_device
-from .ring_cuda import shard_rows
+from .ring_cuda import copy_after, copy_streams, work_cuts
 
 
 def refs_adjacency_sharded(
@@ -67,22 +73,27 @@ def refs_adjacency_sharded(
     if r == 0 or n == 0:
         return np.zeros(0, np.int64), np.zeros(0, np.int64)
 
-    replicas = {}  # the candidates once per distinct device that sweeps
-    r_sh = shard_rows(r, mesh.size)
+    cuts = work_cuts(np.maximum(hi - lo, 0) + 1, mesh.size)
+    shards = range(len(cuts) - 1)
+    devices = list(dict.fromkeys(mesh[d] for d in shards))
+    if cands is None:
+        cands = hc._tiled(cands_packed, devices[0])
+    streams = copy_streams(devices + [cands.device])
+    replicas = {dev: (cands, None) if dev == cands.device else copy_after(cands, None, dev, streams)
+                for dev in devices}
 
     def sweep(d):
-        dev, a, b = mesh[d], d * r_sh, min((d + 1) * r_sh, r)
-        if dev not in replicas:  # a device's jobs run in turn, in one thread
-            if cands is None:
-                replicas[dev] = hc._tiled(cands_packed, dev)
-            else:
-                replicas[dev] = cands if cands.device == dev else cands.to(dev, copy=True)
-        state = hc.RefsState(refs_packed[a:b], replicas[dev], lo[a:b], hi[a:b], dev, n_cands=n)
+        dev, a, b = mesh[d], int(cuts[d]), int(cuts[d + 1])
+        block, arrived = replicas[dev]
+        if arrived is not None:  # this card's stream waits for its replica
+            stream = torch.cuda.current_stream(dev)
+            stream.wait_event(arrived)
+            block.record_stream(stream)
+        state = hc.RefsState(refs_packed[a:b], block, lo[a:b], hi[a:b], block.device, n_cands=n)
         ii, jj = hc.refs_adjacency_cuda(state, tolerance_int, counts_budget)
         return ii + a, jj
 
-    out = run_by_device([(mesh[d], lambda d=d: sweep(d))
-                         for d in range(mesh.size) if d * r_sh < r])
+    out = run_by_device([(mesh[d], lambda d=d: sweep(d)) for d in shards])
     # each shard's pairs are sorted and the shards' rows ascend: the
     # concatenation is in lexicographic order
     return np.concatenate([o[0] for o in out]), np.concatenate([o[1] for o in out])

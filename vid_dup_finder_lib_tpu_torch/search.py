@@ -35,7 +35,8 @@ Backends of ``search``:
 * ``"ring"``: the two-phase adjacency over the shards of
   ``parallel.mesh.make_mesh(device=device)`` (every visible card, or one CPU
   shard; :mod:`.parallel.ring_cuda`) at any size, from the host matrix also
-  when a library is attached, as in the JAX package; ``auto`` never takes it;
+  when a library is attached, as in the JAX package; ``auto`` takes it
+  without a library on several cards (:func:`.ops.hamming.banded_adjacency`);
 * ``"host"``: the adjacency from the NumPy sweep
   (:func:`.ops.hamming.banded_adjacency_host`);
 * ``"naive"``: the pairwise loop at any size.
@@ -51,7 +52,11 @@ library for the batched references search (unless ``VDF_REFS_NATIVE=0``);
 one on a CUDA device never sweeps with it.  The batched references search
 splits the references over ``make_mesh(device=device)``
 (:func:`.parallel.refs_sharded.refs_adjacency_sharded`) only when
-``VDF_REFS_SHARDED=1``.  ``search_one`` measures its
+``VDF_REFS_SHARDED=1``: the JAX package shards it on several chips with the
+variable unset (``search.py:604-613``), but on four H100s the sharded
+search lost to one card at every size measured (10,000 references against
+131,072 to 8,000,000 candidates, ``PERF.md`` §6), so the port keeps that
+rule off.  ``search_one`` measures its
 distances with it on any host that can build it, as in the JAX package.
 """
 
