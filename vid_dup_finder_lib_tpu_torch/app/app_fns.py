@@ -27,7 +27,7 @@ from ..models.builder import CreationOptions
 from ..search import search, search_with_references
 from ..utils.device import resolve_device
 from ..utils.logging import configure_logs
-from ..utils.timers import phase_timer
+from ..utils.timers import maybe_torch_trace, phase_timer
 from .app_cfg import AppCfg, OutputFormat
 from .arg_parse import parse_args
 from .match_db import MatchDb
@@ -186,7 +186,7 @@ def run_app_inner(cfg: AppCfg, device: torch.device) -> None:
     if cfg.cache_cfg.update_cache_only:
         return
 
-    with phase_timer("search"):
+    with maybe_torch_trace(), phase_timer("search"):
         search_output = search_disk(cfg, cache, match_db, device)
     do_app_outputs(cfg, search_output, cache)
 

@@ -40,6 +40,7 @@ import torch
 from ..definitions import HASH_BITS_PADDED
 from .. import native
 from ..utils.device import resolve_device
+from ..utils.timers import count
 from .hamming_band import banded_adjacency_band
 from .hamming_cuda import (
     RefsState,
@@ -117,12 +118,15 @@ def banded_adjacency(
     device: torch.device | str | None = None,
 ) -> tuple[np.ndarray, np.ndarray]:
     """All pairs (i, j), i < j < bounds[i], with hamming <= tolerance_int,
-    as int64 arrays in lexicographic order.  ``packed``: uint32[n, 32]."""
+    as int64 arrays in lexicographic order.  ``packed``: uint32[n, 32].
+    The path taken is counted on the caller's open span (``path``)."""
     if backend == "host":
+        count(path="host")
         return banded_adjacency_host(packed, bounds, tolerance_int)
     if backend not in BACKENDS:
         raise ValueError(f"unknown backend {backend!r}; expected one of {BACKENDS}")
     if backend == "band":
+        count(path="band")
         return banded_adjacency_band(packed, bounds, tolerance_int, device=device)
     if backend == "native":
         if not native.available():
@@ -130,6 +134,7 @@ def banded_adjacency(
                 "backend='native': the native library could not be built from"
                 " native_src/vdf_native.cpp (g++ missing or failing)"
             )
+        count(path="native")
         return _banded_adjacency_native(packed, bounds, tolerance_int)
     dev = resolve_device(device)
     if backend == "ring" or (backend == "auto" and _auto_ring(packed.shape[0], bounds, dev)):
@@ -137,9 +142,12 @@ def banded_adjacency(
         from ..parallel.mesh import make_mesh
         from ..parallel.ring_cuda import banded_adjacency_ring
 
+        count(path="ring")
         return banded_adjacency_ring(packed, bounds, tolerance_int, mesh=make_mesh(device=dev))
     if backend == "auto" and dev.type == "cpu" and native.available():
+        count(path="native")
         return _banded_adjacency_native(packed, bounds, tolerance_int)
+    count(path="device")
     return banded_adjacency_cuda(SearchState(packed, bounds, dev), tolerance_int)
 
 

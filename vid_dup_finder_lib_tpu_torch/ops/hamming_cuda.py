@@ -51,6 +51,7 @@ import torch
 from ..definitions import HASH_BITS_PADDED, HASH_WORDS32
 from ..utils import cuda_build, staging
 from ..utils.device import resolve_device
+from ..utils.timers import count, span
 
 TILE = 128  # rows per row tile == columns per column tile (csrc TILE)
 WORDS_PER_COL = TILE // 32  # packed words per column of a tile
@@ -97,6 +98,12 @@ def refs_launch_metadata(
     cmax = hi.reshape(n_row_tiles, TILE).max(axis=1)
     n_ct = np.maximum(0, -(-(cmax - first_ct * TILE) // TILE))
     return first_ct, n_ct
+
+
+def _host_rows_bytes(packed: np.ndarray | torch.Tensor, n: int) -> int:
+    """The bytes a state uploads of ``n`` packed rows: none of a resident
+    tensor."""
+    return 0 if isinstance(packed, torch.Tensor) else n * HASH_WORDS32 * 4
 
 
 def _packed_rows(packed_u32: np.ndarray, what: str) -> np.ndarray:
@@ -183,33 +190,35 @@ class SearchState:
         device: torch.device,
         n: int | None = None,
     ) -> None:
-        self.device = torch.device(device)
-        self.packed, n = _matrix(packed, n, self.device, "packed")
-        bounds = np.asarray(bounds, dtype=np.int64)
-        if bounds.shape != (n,):
-            raise ValueError(f"bounds must be [{n}], got {bounds.shape}")
-        if n >= 2**31 - TILE:
-            raise ValueError(f"{n} hashes exceed the int32 index range")
-        self.n = n
-        self.n_row_tiles = -(-n // TILE)
-        self.n_pad = self.n_row_tiles * TILE
-        clamped = np.minimum(bounds, n)
-        self.first_ct, self.n_ct = launch_metadata(
-            n, clamped, self.n_row_tiles
-        )
-        self.slots = int(self.n_ct.max()) if n else 0
+        with span("sweep.state"):
+            self.device = torch.device(device)
+            self.packed, n = _matrix(packed, n, self.device, "packed")
+            bounds = np.asarray(bounds, dtype=np.int64)
+            if bounds.shape != (n,):
+                raise ValueError(f"bounds must be [{n}], got {bounds.shape}")
+            if n >= 2**31 - TILE:
+                raise ValueError(f"{n} hashes exceed the int32 index range")
+            self.n = n
+            self.n_row_tiles = -(-n // TILE)
+            self.n_pad = self.n_row_tiles * TILE
+            clamped = np.minimum(bounds, n)
+            self.first_ct, self.n_ct = launch_metadata(
+                n, clamped, self.n_row_tiles
+            )
+            self.slots = int(self.n_ct.max()) if n else 0
 
-        bounds_pad = np.full(self.n_pad, -1, dtype=np.int32)
-        bounds_pad[:n] = clamped
-        self.rows = self.cols = self.packed
-        self.row_lo = None
-        self.bounds = torch.from_numpy(bounds_pad).to(self.device)
-        self.first_ct_dev = torch.from_numpy(
-            self.first_ct.astype(np.int32)
-        ).to(self.device)
-        self.n_ct_dev = torch.from_numpy(self.n_ct.astype(np.int32)).to(
-            self.device
-        )
+            bounds_pad = np.full(self.n_pad, -1, dtype=np.int32)
+            bounds_pad[:n] = clamped
+            self.rows = self.cols = self.packed
+            self.row_lo = None
+            self.bounds = torch.from_numpy(bounds_pad).to(self.device)
+            self.first_ct_dev = torch.from_numpy(
+                self.first_ct.astype(np.int32)
+            ).to(self.device)
+            self.n_ct_dev = torch.from_numpy(self.n_ct.astype(np.int32)).to(
+                self.device
+            )
+            count(h2d_bytes=_host_rows_bytes(packed, n) + 4 * (self.n_pad + 2 * self.n_row_tiles))
 
     def comparisons(self) -> int:
         """Pairs (i, j) inside the band, i < j < bounds[i]."""
@@ -247,38 +256,41 @@ class RefsState:
         n_cands: int | None = None,
         n_refs: int | None = None,
     ) -> None:
-        self.device = torch.device(device)
-        self.rows, r = _matrix(refs, n_refs, self.device, "refs_packed")
-        self.cols, n = _matrix(cands, n_cands, self.device, "cands_packed")
-        lo = np.asarray(lo, dtype=np.int64)
-        hi = np.asarray(hi, dtype=np.int64)
-        if lo.shape != (r,) or hi.shape != (r,):
-            raise ValueError(
-                f"lo and hi must be [{r}], got {lo.shape} and {hi.shape}"
+        with span("sweep.state"):
+            self.device = torch.device(device)
+            self.rows, r = _matrix(refs, n_refs, self.device, "refs_packed")
+            self.cols, n = _matrix(cands, n_cands, self.device, "cands_packed")
+            lo = np.asarray(lo, dtype=np.int64)
+            hi = np.asarray(hi, dtype=np.int64)
+            if lo.shape != (r,) or hi.shape != (r,):
+                raise ValueError(
+                    f"lo and hi must be [{r}], got {lo.shape} and {hi.shape}"
+                )
+            if max(r, n) >= ROW_LO_SENTINEL:
+                raise ValueError(f"{max(r, n)} hashes exceed the index range")
+            self.n = n
+            self.n_rows = r
+            self.n_row_tiles = -(-r // TILE)
+            r_pad = self.n_row_tiles * TILE
+            row_lo = np.full(r_pad, ROW_LO_SENTINEL, dtype=np.int64)
+            row_lo[:r] = np.clip(lo, 0, n) - 1
+            bounds = np.full(r_pad, -1, dtype=np.int64)
+            bounds[:r] = np.minimum(hi, n)
+            self.first_ct, self.n_ct = refs_launch_metadata(
+                row_lo[:r], bounds[:r], self.n_row_tiles
             )
-        if max(r, n) >= ROW_LO_SENTINEL:
-            raise ValueError(f"{max(r, n)} hashes exceed the index range")
-        self.n = n
-        self.n_rows = r
-        self.n_row_tiles = -(-r // TILE)
-        r_pad = self.n_row_tiles * TILE
-        row_lo = np.full(r_pad, ROW_LO_SENTINEL, dtype=np.int64)
-        row_lo[:r] = np.clip(lo, 0, n) - 1
-        bounds = np.full(r_pad, -1, dtype=np.int64)
-        bounds[:r] = np.minimum(hi, n)
-        self.first_ct, self.n_ct = refs_launch_metadata(
-            row_lo[:r], bounds[:r], self.n_row_tiles
-        )
-        self.slots = int(self.n_ct.max()) if r and n else 0
+            self.slots = int(self.n_ct.max()) if r and n else 0
 
-        self.row_lo = torch.from_numpy(row_lo.astype(np.int32)).to(self.device)
-        self.bounds = torch.from_numpy(bounds.astype(np.int32)).to(self.device)
-        self.first_ct_dev = torch.from_numpy(
-            self.first_ct.astype(np.int32)
-        ).to(self.device)
-        self.n_ct_dev = torch.from_numpy(self.n_ct.astype(np.int32)).to(
-            self.device
-        )
+            self.row_lo = torch.from_numpy(row_lo.astype(np.int32)).to(self.device)
+            self.bounds = torch.from_numpy(bounds.astype(np.int32)).to(self.device)
+            self.first_ct_dev = torch.from_numpy(
+                self.first_ct.astype(np.int32)
+            ).to(self.device)
+            self.n_ct_dev = torch.from_numpy(self.n_ct.astype(np.int32)).to(
+                self.device
+            )
+            count(h2d_bytes=_host_rows_bytes(refs, r) + _host_rows_bytes(cands, n)
+                  + 4 * (2 * r_pad + 2 * self.n_row_tiles))
 
     def comparisons(self) -> int:
         """Pairs (i, j) inside the windows, lo[i] <= j < hi[i]."""
@@ -637,7 +649,8 @@ def hit_tiles(state: SweepState, counts: torch.Tensor, rt0: int = 0) -> torch.Te
     """Phase A counts of the row tiles from ``rt0`` on -> int32[H, 2] (row
     tile, column tile, both of the whole state) of the tiles holding at
     least one match, in row-major order."""
-    nz = torch.nonzero(counts)  # [H, 2]: row tile of the slab, band slot
+    with span("sweep.wait", what="hits"):
+        nz = torch.nonzero(counts)  # [H, 2]: row tile of the slab, band slot
     rt = nz[:, 0] + rt0
     ct = state.first_ct_dev[rt].to(torch.int64) + nz[:, 1]
     return torch.stack([rt, ct], dim=1).to(torch.int32).contiguous()
@@ -650,7 +663,8 @@ def decode_words(
     sorted lexicographically, on the state's device.  Pairs are keyed by
     ``i * n + j`` with ``n = state.n``, the number of columns."""
     flat = words.reshape(-1)
-    loc = torch.nonzero(flat).squeeze(1)  # int64 word positions
+    with span("sweep.wait", what="decode"):
+        loc = torch.nonzero(flat).squeeze(1)  # int64 word positions
     vals = flat[loc]
     per_hit = WORDS_PER_COL * TILE
     h = loc // per_hit
@@ -660,7 +674,8 @@ def decode_words(
     row_base = hits64[h, 0] * TILE + r * 32
     col = hits64[h, 1] * TILE + c
     shifts = torch.arange(32, device=words.device, dtype=torch.int32)
-    w_idx, b = torch.nonzero((vals[:, None] >> shifts) & 1, as_tuple=True)
+    with span("sweep.wait", what="decode"):
+        w_idx, b = torch.nonzero((vals[:, None] >> shifts) & 1, as_tuple=True)
     ii = row_base[w_idx] + b
     jj = col[w_idx]
     key = torch.sort(ii * state.n + jj).values  # int64: rows * n < 2^62
@@ -696,13 +711,16 @@ def _two_phase(
     for rt0, rt1 in count_slabs(state, counts_budget):
         if not state.n_ct[rt0:rt1].any():
             continue
-        hits = hit_tiles(state, counts_fn(state, tol, rt0, rt1), rt0)
-        if hits.shape[0]:
-            pairs.append(decode_words(state, hits, pack_fn(state, hits, tol)))
+        with span("sweep.slab", row_tiles=rt1 - rt0):
+            hits = hit_tiles(state, counts_fn(state, tol, rt0, rt1), rt0)
+            count(hit_tiles=hits.shape[0])
+            if hits.shape[0]:
+                pairs.append(decode_words(state, hits, pack_fn(state, hits, tol)))
     if not pairs:
         return np.zeros(0, np.int64), np.zeros(0, np.int64)
     # slabs ascend in rows, so their sorted pairs concatenate sorted
-    ii, jj = (torch.cat(p).cpu().numpy() for p in zip(*pairs))
+    with span("sweep.wait", what="fetch"):
+        ii, jj = (torch.cat(p).cpu().numpy() for p in zip(*pairs))
     return ii, jj
 
 

@@ -59,28 +59,30 @@ the streams that read it, until the ring ends.
 
 from __future__ import annotations
 
-import time
-
 import numpy as np
 import torch
 
 from ..definitions import HASH_WORDS32
 from ..ops import hamming_cuda as hc
 from ..ops.hamming_cuda import TILE
+from ..utils.timers import count, current, span
 from .mesh import Mesh, make_mesh, run_by_device
 
-# phase breakdown of the most recent banded_adjacency_ring call: host
-# seconds of setup (cuts, plan, own blocks), rotate (enqueuing every copy:
-# the card's copy time falls inside the sweeps'), sweep (the cards' jobs,
-# their per-slab decode and d2h included) and decode (global offsets and
-# the final sort); steps, k_max, shards, the block starts (``cuts``), K2
-# and K3 launches, the bytes copied between shards; per shard and step
-# (``shard_s``, ``shard_pairs``: one list per shard, one entry per step it
-# sweeps) the sweep's host seconds, the wait for its block included, and
-# its in-band pairs; and two walls projected from those seconds for shards
-# on distinct cards: ``projected_wall_s``, the sum over steps of the
-# slowest shard (a barrier after every step), and ``projected_free_s``,
-# the slowest shard's sum over its steps (no barrier)
+# phase breakdown of the most recent banded_adjacency_ring call, from the
+# clock reads of its spans (``utils.timers``): host seconds of setup
+# (``ring.plan``: cuts, plan, own blocks), rotate (``ring.rotate``:
+# enqueuing every copy: the card's copy time falls inside the sweeps'),
+# sweep (from the end of ``ring.rotate`` to the start of ``ring.merge``:
+# the cards' jobs, their per-slab decode and d2h included) and decode
+# (``ring.merge``: global offsets and the final sort); steps, k_max,
+# shards, the block starts (``cuts``), K2 and K3 launches, the bytes
+# copied between shards; per shard and step (``shard_s``,
+# ``shard_pairs``: one list per shard, one entry per step it sweeps) the
+# sweep's host seconds (its ``ring.job``), the wait for its block
+# included, and its in-band pairs; and two walls projected from those
+# seconds for shards on distinct cards: ``projected_wall_s``, the sum over
+# steps of the slowest shard (a barrier after every step), and
+# ``projected_free_s``, the slowest shard's sum over its steps (no barrier)
 LAST_RING_PHASES: dict = {}
 
 _BLOCK_ROW_BYTES = HASH_WORDS32 * 4  # 128 B per packed hash
@@ -232,85 +234,88 @@ def banded_adjacency_ring(
     as :class:`..ops.hamming_cuda.SearchState` takes it.  ``mesh``
     defaults to :func:`.mesh.make_mesh` on the resident tensor's device,
     or on the card.  Each (shard, step) sweeps in slabs of at most
-    ``counts_budget`` count cells (``hamming_cuda.count_slabs``)."""
-    t0 = time.perf_counter()
-    resident = isinstance(packed, torch.Tensor)
-    if mesh is None:
-        mesh = make_mesh(device=packed.device if resident else None)
-    if resident:
-        if packed.device.type != mesh[0].type:
-            raise ValueError(f"packed lies on {packed.device}, the mesh on {mesh[0].type}")
-        packed, n = hc._matrix(packed, n, packed.device, "packed")
-    else:
-        packed = hc._packed_rows(packed, "packed")
-        n = packed.shape[0]
-    bounds = np.asarray(bounds, dtype=np.int64)
-    if bounds.shape != (n,):
-        raise ValueError(f"bounds must be [{n}], got {bounds.shape}")
-    launches0 = (hc.band_counts.launches, hc.band_pack.launches)
+    ``counts_budget`` count cells (``hamming_cuda.count_slabs``), as one
+    ``ring.job`` span on its card's thread, under the caller's open span."""
+    global LAST_RING_PHASES
     ph = {"setup": 0.0, "rotate": 0.0, "sweep": 0.0, "decode": 0.0, "steps": 0,
           "k_max": 0, "shards": 0, "cuts": [0], "band_counts": 0, "band_pack": 0,
           "rotated_bytes": 0, "shard_s": [], "shard_pairs": [],
           "projected_wall_s": 0.0, "projected_free_s": 0.0}
-    global LAST_RING_PHASES
-    if n == 0:
-        LAST_RING_PHASES = ph
-        return np.zeros(0, np.int64), np.zeros(0, np.int64)
+    with span("ring.plan", timed=True) as plan:
+        resident = isinstance(packed, torch.Tensor)
+        if mesh is None:
+            mesh = make_mesh(device=packed.device if resident else None)
+        if resident:
+            if packed.device.type != mesh[0].type:
+                raise ValueError(f"packed lies on {packed.device}, the mesh on {mesh[0].type}")
+            packed, n = hc._matrix(packed, n, packed.device, "packed")
+        else:
+            packed = hc._packed_rows(packed, "packed")
+            n = packed.shape[0]
+        bounds = np.asarray(bounds, dtype=np.int64)
+        if bounds.shape != (n,):
+            raise ValueError(f"bounds must be [{n}], got {bounds.shape}")
+        launches0 = (hc.band_counts.launches, hc.band_pack.launches)
+        if n == 0:
+            LAST_RING_PHASES = ph
+            return np.zeros(0, np.int64), np.zeros(0, np.int64)
 
-    bounds_c = np.minimum(bounds, n)
-    cum = ring_work(bounds_c)
-    cuts = prefix_cuts(cum, mesh.size)
-    rows = np.diff(cuts).tolist()
-    s_max, holds = _plan(bounds_c, cuts)
-    k_max = holds.shape[0] - 1
-    own = _own_blocks(packed, cuts, mesh)
-    ph.update(setup=time.perf_counter() - t0, steps=k_max + 1, k_max=k_max, shards=len(own),
+        bounds_c = np.minimum(bounds, n)
+        cum = ring_work(bounds_c)
+        cuts = prefix_cuts(cum, mesh.size)
+        rows = np.diff(cuts).tolist()
+        s_max, holds = _plan(bounds_c, cuts)
+        k_max = holds.shape[0] - 1
+        own = _own_blocks(packed, cuts, mesh)
+    ph.update(setup=plan.seconds, steps=k_max + 1, k_max=k_max, shards=len(own),
               cuts=cuts.tolist(),
               shard_pairs=[[_block_pairs(bounds_c, cum, cuts, d, s) for s in range(last + 1)]
                            for d, last in enumerate(s_max)])
 
-    t0 = time.perf_counter()
-    held = _rotate(own, holds, mesh)
-    ph["rotated_bytes"] = sum(rows[d + s] * _BLOCK_ROW_BYTES
-                              for s in range(1, k_max + 1) for d in range(len(own)) if holds[s, d])
-    ph["rotate"] = time.perf_counter() - t0
+    with span("ring.rotate", timed=True) as rotate:
+        held = _rotate(own, holds, mesh)
+        ph["rotated_bytes"] = sum(rows[d + s] * _BLOCK_ROW_BYTES for s in range(1, k_max + 1)
+                                  for d in range(len(own)) if holds[s, d])
+    ph["rotate"] = rotate.seconds
 
     shard_s = [[0.0] * (last + 1) for last in s_max]
+    ring = current()  # the jobs' parent: the caller's open span
 
     def sweep(d, s):
-        t = time.perf_counter()
-        a, b0 = int(cuts[d]), int(cuts[d + s])
-        mine = bounds_c[a : a + rows[d]]
-        block, arrived = held[s][d]
-        if arrived is not None:  # this card's stream waits for the block, and no longer
-            stream = torch.cuda.current_stream(mesh[d])
-            stream.wait_event(arrived)
-            block.record_stream(stream)
-        if s == 0:
-            state = hc.SearchState(block, np.minimum(mine, a + rows[d]) - a, block.device, n=rows[d])
-            ii, jj = hc.banded_adjacency_cuda(state, tolerance_int, counts_budget)
-        else:
-            state = hc.RefsState(
-                own[d], block, np.zeros(rows[d], np.int64),
-                np.clip(mine - b0, 0, rows[d + s]), block.device,
-                n_cands=rows[d + s], n_refs=rows[d])
-            ii, jj = hc.refs_adjacency_cuda(state, tolerance_int, counts_budget)
-        shard_s[d][s] = time.perf_counter() - t
+        with span("ring.job", parent=ring, timed=True, shard=d, step=s) as job:
+            a, b0 = int(cuts[d]), int(cuts[d + s])
+            mine = bounds_c[a : a + rows[d]]
+            block, arrived = held[s][d]
+            if arrived is not None:  # this card's stream waits for the block, and no longer
+                stream = torch.cuda.current_stream(mesh[d])
+                stream.wait_event(arrived)
+                block.record_stream(stream)
+            if s == 0:
+                state = hc.SearchState(block, np.minimum(mine, a + rows[d]) - a, block.device,
+                                       n=rows[d])
+                ii, jj = hc.banded_adjacency_cuda(state, tolerance_int, counts_budget)
+            else:
+                state = hc.RefsState(
+                    own[d], block, np.zeros(rows[d], np.int64),
+                    np.clip(mine - b0, 0, rows[d + s]), block.device,
+                    n_cands=rows[d + s], n_refs=rows[d])
+                ii, jj = hc.refs_adjacency_cuda(state, tolerance_int, counts_budget)
+            count(pairs=len(ii))
+        shard_s[d][s] = job.seconds
         return ii + a, jj + b0
 
     # one job per (shard, step), step by step: each card runs its own jobs
     # in that order, from a thread of its own, with no barrier between steps
-    t0 = time.perf_counter()
     parts = run_by_device([(mesh[d], lambda d=d, s=s: sweep(d, s))
                            for s in range(k_max + 1) for d in range(len(own)) if s <= s_max[d]])
-    ph["sweep"] = time.perf_counter() - t0
 
-    t0 = time.perf_counter()
-    ii = np.concatenate([p[0] for p in parts]) if parts else np.zeros(0, np.int64)
-    jj = np.concatenate([p[1] for p in parts]) if parts else np.zeros(0, np.int64)
-    order = np.lexsort((jj, ii))
-    ii, jj = ii[order], jj[order]
-    ph["decode"] = time.perf_counter() - t0
+    with span("ring.merge", timed=True) as merge:
+        ii = np.concatenate([p[0] for p in parts]) if parts else np.zeros(0, np.int64)
+        jj = np.concatenate([p[1] for p in parts]) if parts else np.zeros(0, np.int64)
+        order = np.lexsort((jj, ii))
+        ii, jj = ii[order], jj[order]
+    ph["sweep"] = (merge.start_ns - rotate.end_ns) / 1e9
+    ph["decode"] = merge.seconds
     ph["band_counts"] = hc.band_counts.launches - launches0[0]
     ph["band_pack"] = hc.band_pack.launches - launches0[1]
     ph["shard_s"] = shard_s

@@ -81,6 +81,7 @@ from .ops.hamming import banded_adjacency, refs_adjacency
 from .ops.hamming_band import banded_adjacency_band
 from .ops.hamming_cuda import IncrementalDeviceLibrary, banded_adjacency_cuda
 from .utils.device import resolve_device
+from .utils.timers import count, span
 from .video_hash import VideoHash, VideoHashBatch, ascii_path_array, hashes_to_matrix
 
 BACKENDS = ("auto", "device", "band", "host", "native", "ring", "naive")
@@ -223,24 +224,28 @@ class Search:
         if self._adj_j is not None and self._tol_of_adjacency == tolerance_int:
             return
         bounds = self._self_search_bounds()
-        if self._library is not None and backend in ("auto", "device", "band"):
-            state = self._library.state(self._library_order, bounds)
-            if backend == "band":
-                pairs_i, pairs_j = banded_adjacency_band(
-                    None, None, tolerance_int, state=state
-                )
+        with span("search.sweep"):
+            if self._library is not None and backend in ("auto", "device", "band"):
+                count(path="library")
+                state = self._library.state(self._library_order, bounds)
+                if backend == "band":
+                    pairs_i, pairs_j = banded_adjacency_band(
+                        None, None, tolerance_int, state=state
+                    )
+                else:
+                    pairs_i, pairs_j = banded_adjacency_cuda(state, tolerance_int)
             else:
-                pairs_i, pairs_j = banded_adjacency_cuda(state, tolerance_int)
-        else:
-            pairs_i, pairs_j = banded_adjacency(
-                self._packed_matrix(),
-                bounds,
-                tolerance_int,
-                backend=backend,
-                device=self.device,
-            )
+                pairs_i, pairs_j = banded_adjacency(
+                    self._packed_matrix(),
+                    bounds,
+                    tolerance_int,
+                    backend=backend,
+                    device=self.device,
+                )
+            count(pairs=len(pairs_i))
         self._adj_j = pairs_j
-        self._adj_off = self._adjacency_offsets(pairs_i, len(self.entries))
+        with span("search.csr"):
+            self._adj_off = self._adjacency_offsets(pairs_i, len(self.entries))
         self._tol_of_adjacency = tolerance_int
 
     @staticmethod
@@ -254,10 +259,11 @@ class Search:
     def _self_search_bounds(self) -> np.ndarray:
         """For each i, the exclusive upper index bound of the +10% duration
         window (search_algorithm.rs:99)."""
-        thresh = (
-            self._durations.astype(np.float64) * SELF_SEARCH_DURATION_FACTOR
-        ).astype(np.int64)  # trunc, like `as u32`
-        return np.searchsorted(self._durations, thresh, side="right")
+        with span("search.bounds"):
+            thresh = (
+                self._durations.astype(np.float64) * SELF_SEARCH_DURATION_FACTOR
+            ).astype(np.int64)  # trunc, like `as u32`
+            return np.searchsorted(self._durations, thresh, side="right")
 
     # -- searches ------------------------------------------------------------
 
@@ -276,6 +282,17 @@ class Search:
         if use_adjacency:
             self._ensure_adjacency(tol, backend)
 
+        bounds = None if use_adjacency else self._self_search_bounds()
+        with span("search.replay"):
+            ret = self._replay(use_adjacency, bounds, tol)
+        ret.reverse()  # search_algorithm.rs:136,167
+        return ret
+
+    def _replay(
+        self, use_adjacency: bool, bounds: np.ndarray | None, tol: int
+    ) -> list[list[str]]:
+        """The greedy consume, over the adjacency or pairwise within
+        ``bounds``, in the reference's order."""
         matched = self.matched
         ret: list[list[str]] = []
         if use_adjacency:
@@ -304,8 +321,7 @@ class Search:
                 ret.append(match_vec)
             matched[:] = True
         else:
-            bounds = self._self_search_bounds()
-            for lhs in range(n):
+            for lhs in range(len(self.entries)):
                 if matched[lhs]:
                     continue
                 matched[lhs] = True
@@ -319,7 +335,6 @@ class Search:
                 if match_vec:
                     match_vec.append(self.entries[lhs].src_path)
                     ret.append(match_vec)
-        ret.reverse()  # search_algorithm.rs:136,167
         return ret
 
     def _duration_slice(self, duration_secs: int) -> tuple[int, int]:
@@ -372,8 +387,26 @@ class Search:
         refs = references if isinstance(references, VideoHashBatch) else list(references)
         if not refs or not self.entries:
             return [[] for _ in refs]
-        order, lo, hi = self._reference_windows(refs)
-        ref_mat = self._reference_matrix(refs, order)
+        with span("refs.windows"):
+            order, lo, hi = self._reference_windows(refs)
+        with span("refs.matrix"):
+            ref_mat = self._reference_matrix(refs, order)
+        with span("refs.sweep"):
+            pi, pj = self._refs_pairs(ref_mat, lo, hi, tol)
+        with span("refs.results"):
+            keep = ~self.matched[pj]
+            results: list[list[str]] = [[] for _ in refs]
+            order = order.tolist()
+            for i, j in zip(pi[keep].tolist(), pj[keep].tolist()):
+                results[order[i]].append(self.entries[j].src_path)
+        return results
+
+    def _refs_pairs(
+        self, ref_mat: np.ndarray, lo: np.ndarray, hi: np.ndarray, tol: int
+    ) -> tuple[np.ndarray, np.ndarray]:
+        """The references' in-tolerance pairs (sorted ref, candidate)
+        within their windows: sharded, native or one sweep
+        (:meth:`search_with_references_batched`)."""
         cands = self._ensure_cands_dev()
         if os.environ.get("VDF_REFS_SHARDED") == "1":
             # imported here: a process that never shards loads none of it
@@ -413,12 +446,7 @@ class Search:
                 device=self.device,
                 n_cands=len(self.entries),
             )
-        keep = ~self.matched[pj]
-        results: list[list[str]] = [[] for _ in refs]
-        order = order.tolist()
-        for i, j in zip(pi[keep].tolist(), pj[keep].tolist()):
-            results[order[i]].append(self.entries[j].src_path)
-        return results
+        return pi, pj
 
     def _reference_windows(
         self, refs: Sequence[VideoHash]
@@ -653,10 +681,17 @@ def search(
             )
     if tolerance is None:
         tolerance = DEFAULT_SEARCH_TOLERANCE
-    s = Search(hashes, device=device)
-    if device_library is not None:
-        s.attach_device_library(device_library, library_paths)
-    return _groups(s.search_self(tolerance, backend=backend))
+    with span("search"):
+        with span("search.build"):
+            s = Search(hashes, device=device)
+        if device_library is not None:
+            s.attach_device_library(device_library, library_paths)
+        matches = s.search_self(tolerance, backend=backend)
+        with span("search.groups"):
+            groups = _groups(matches)
+        count(rows=len(s.entries), groups=len(groups))
+        del s  # its entry list freed inside the call's span (~60 ms at 8M hashes)
+    return groups
 
 
 def search_with_references(
@@ -675,19 +710,23 @@ def search_with_references(
     reference at a time on the host, as the JAX package does."""
     if tolerance is None:
         tolerance = DEFAULT_SEARCH_TOLERANCE
-    s = Search(new_hashes, device=device)
-    if device_library is not None:
-        s.attach_device_library(device_library, library_paths)
-    refs = ref_hashes if isinstance(ref_hashes, VideoHashBatch) else list(ref_hashes)
-    if len(refs) >= _BATCHED_REFS_THRESHOLD or device_library is not None:
-        all_matches = s.search_with_references_batched(refs, tolerance)
-    else:
-        all_matches = s.search_with_references(refs, tolerance, consume=False)
-    out: list[MatchGroup] = []
-    for ref, matches in zip(refs, all_matches):
-        if matches:
-            try:
-                out.append(MatchGroup.new_with_reference(ref.src_path, matches))
-            except TooFewEntries:
-                pass
+    with span("refs"):
+        with span("refs.build"):
+            s = Search(new_hashes, device=device)
+        if device_library is not None:
+            s.attach_device_library(device_library, library_paths)
+        refs = ref_hashes if isinstance(ref_hashes, VideoHashBatch) else list(ref_hashes)
+        if len(refs) >= _BATCHED_REFS_THRESHOLD or device_library is not None:
+            all_matches = s.search_with_references_batched(refs, tolerance)
+        else:
+            with span("refs.sweep"):
+                all_matches = s.search_with_references(refs, tolerance, consume=False)
+        out: list[MatchGroup] = []
+        with span("refs.groups"):
+            for ref, matches in zip(refs, all_matches):
+                if matches:
+                    try:
+                        out.append(MatchGroup.new_with_reference(ref.src_path, matches))
+                    except TooFewEntries:
+                        pass
     return out
