@@ -398,6 +398,64 @@ def test_k2_state_after_a_later_append(dev):
     assert int(_k2_equal(grown, 350).sum()) >= int(before.sum()) + n % hc.TILE
 
 
+def _every_offset(mode, tol, dev, seed=17):
+    """A state of 8 column tiles whose planted pairs put every row offset
+    and every column offset of a tile, in both 64-column halves of K2's
+    warpgroups, in a pair at ham == tol and in one at tol + 1, beside rows
+    whose windows end (and, in the window mode, start) inside a column
+    tile at many offsets.  Returns the state and the planted pairs its
+    windows keep, lexicographic."""
+    rng = np.random.default_rng(seed)
+    n = 8 * hc.TILE
+    k = np.arange(hc.TILE)
+    perm = [rng.permutation(hc.TILE) for _ in range(4)]
+    packed = rng.integers(0, 2**32, (n, 32), dtype=np.uint64).astype(np.uint32)
+    packed[:, -1] |= rng.integers(1, 2**24, n, dtype=np.uint64).astype(np.uint32) << np.uint32(8)
+    # (base rows, partner column tile, partner offsets, distance, window end)
+    plan = [(k, 2, perm[0], tol, np.full(hc.TILE, n)),
+            (hc.TILE + k, 3, perm[1], tol + 1, np.full(hc.TILE, n)),
+            (4 * hc.TILE + k, 6, perm[2], tol, 6 * hc.TILE + (k * 89) % hc.TILE),
+            (5 * hc.TILE + k, 7, perm[3], tol, 7 * hc.TILE + (k * 61) % hc.TILE)]
+    want = []
+    if mode == "self":
+        bounds = np.arange(1, n + 1)  # no band but for the base rows'
+        for rows, ct, off, dist, end in plan:
+            cols = ct * hc.TILE + off
+            for i, j in zip(rows, cols):
+                packed[j] = _flip_exactly(packed[i], rng, dist)
+            bounds[rows] = end
+            want += [(int(i), int(j)) for i, j, e in zip(rows, cols, end) if dist == tol and j < e]
+        return hc.SearchState(packed, bounds, dev), sorted(want)
+    refs, lo, hi = [], [], []
+    for r, (rows, ct, off, dist, end) in enumerate(plan):
+        cols = ct * hc.TILE + off
+        start = np.zeros(hc.TILE, np.int64) if r < 2 else (ct - 1 + r % 2) * hc.TILE + (k * 37) % hc.TILE
+        refs += [_flip_exactly(packed[j], rng, dist) for j in cols]
+        lo.append(start)
+        hi.append(end)
+        want += [(r * hc.TILE + int(i), int(j)) for i, (j, a, e) in enumerate(zip(cols, start, end))
+                 if dist == tol and a <= j < e]
+    st = hc.RefsState(np.stack(refs), packed, np.concatenate(lo), np.concatenate(hi), dev)
+    return st, sorted(want)
+
+
+@pytest.mark.parametrize("tol", [0, 350])
+@pytest.mark.parametrize("mode", ["self", "window"])
+def test_k2_fragment_layout_every_offset(dev, mode, tol):
+    """K2 holds each column tile in wgmma's A fragment registers, in a K
+    order of its own, and counts the transposed tile: every row and column
+    offset, both warpgroups' halves, the fast path (tiles inside every
+    row's window) and the window test beside it, against the plain version
+    and the planted pairs."""
+    st, want = _every_offset(mode, tol, dev)
+    counts = _k2_equal(st, tol)
+    assert int(counts.sum()) == len(want) > hc.TILE
+    sweep = hc.banded_adjacency_cuda if mode == "self" else hc.refs_adjacency_cuda
+    for budget in (None, 3):
+        i, j = sweep(st, tol, counts_budget=budget)
+        assert list(zip(i.tolist(), j.tolist())) == want
+
+
 # -- K2 over slabs of row tiles, and the slabbed sweep ------------------------
 
 

@@ -25,26 +25,55 @@
 // per in-band pair: at chip_smoke.py's 1M library the band holds 4.587e10
 // pairs, 2 * 1024 * 4.587e10 int8 operations, 47.5 ms at the tensor
 // cores' 1,979 TOP/s int8 rate; its bytes (the packed library, 128 MB)
-// take 0.04 ms.  So the tensor cores bound it.  Each packed bit expands in
-// shared memory to an int8 +/-1 (bit 1 -> +1, bit 0 -> -1), and
+// take 0.04 ms.  So the tensor cores bound it.  Each packed bit expands to
+// an int8 +/-1 (bit 1 -> +1, bit 0 -> -1), and
 //     dot(r, c) = 1024 - 2 * ham(r, c)
 // exactly in int32, so ham <= tol is dot >= 1024 - 2 * tol.  Any bit order
 // serves as long as rows and columns expand alike.
 //
-// Design (the mainloop lives in pm1_wgmma.cuh, shared with
-// band_sweep_kernel).  A block (two warpgroups, 256 threads) owns a run of up to SEG
-// column tiles of one row tile's band.  It expands its 128-row tile once,
-// into 128 KB of shared memory: eight K slabs of 128 rows x 128 bytes in
-// the 128-byte swizzled layout that wgmma's descriptors read.  Column
-// tiles are read packed (16 KB per tile, one tile ahead into registers)
-// and expanded one K slab at a time into a ring of two 16 KB slabs: while
-// warpgroup w's wgmma.m64n128k32 (s8 x s8 -> s32) runs on slab k over its
-// 64 rows, the block expands slab k + 1.  After the eighth slab each
-// thread compares its 64 accumulators with the threshold and its two
-// rows' windows (lo, min(bounds, n)) and the warps add their counts into
-// the (row tile, slot) entry with one atomic each, skipping zero counts;
-// the wrapper zeroes the output.  Library reads stay packed: no int8
-// copy of the library goes to device memory.
+// What held it at half that bound (53% of it, 4.20 us per 128 x 128
+// tile per SM against the 2.24 us the tensor cores need) was shared
+// memory.  Its first design kept the row tile expanded in shared memory
+// as A and expanded each column tile there too, one 16 KB K slab at a
+// time into a ring of two, as B of wgmma.m64n128k32 with both operands in
+// shared memory.  At the int8 peak (4,096 MACs a cycle per SM) one slab's
+// 512 tensor-core cycles then carried 48 KB of operand reads (each
+// warpgroup its 8 KB of A and all 16 KB of B) and 16 KB of expansion
+// stores: 128 B a cycle, the SM's whole shared-memory bandwidth.  Two
+// block barriers a slab, 16 a tile, locked the warpgroups together, so
+// both ran their epilogues while no wgmma was in flight.
+//
+// Design (pm1_wgmma.cuh column_tile).  A block (two warpgroups, 256
+// threads) owns a run of up to SEG column tiles of one row tile's band.
+// It expands its 128-row tile once, into 128 KB of shared memory: eight K
+// slabs of 128 rows x 128 bytes in the 128-byte swizzled layout that
+// wgmma's descriptors read, B of every product (N = 128).  The column
+// tile is A and never touches shared memory: warpgroup g takes columns
+// 64g .. 64g + 63 of each tile, and each thread reads a quarter of the
+// packed words of its two columns (16 registers, the next tile's 16 one
+// tile ahead) and expands them straight into wgmma's A fragment registers,
+// one K slab's four k32 steps at a time, in a ring of two fragment sets:
+// a set is rewritten only after wgmma.wait_group says the group that read
+// it is done.  Shared memory then carries B's reads alone, 32 KB a slab
+// (64 B a cycle at the peak), and the row tile is read-only after the
+// block's one barrier, so the tile loop has none: each warpgroup waits
+// only on its own wgmma groups, and one warpgroup's epilogue overlaps the
+// other's products.  The rows and columns expand in a K order of their
+// own (pm1_wgmma.cuh expand_row_tile_quads), the one in which a thread
+// needs only its quarter of each column's words and four bits a byte apart
+// fill one fragment register: one LOP and one IMAD (pm1_plane), where the
+// nibble expansion of K3 and K4 (pm1x4) takes five, and the 1M sweep
+// 54-58 ms against 59-62.  The accumulators are the transposed tile,
+// D[column, row]: after a tile each thread compares its
+// 64 with the threshold, skipping the window test when the warpgroup's 64
+// columns lie inside every row's window (the row tile's largest lo and
+// smallest hi, reduced once per block), else testing each pair against its
+// row's (lo, min(bounds, n)) in shared memory, and the warps add their
+// counts into the (row tile, slot) entry with one atomic each, skipping
+// zero counts; the wrapper zeroes the output.  Library reads stay packed:
+// no int8 copy of the library goes to device memory.  On an NVIDIA H100
+// 80GB HBM3 at 700 W the 1M sweep takes 53-54 ms, 88-89% of the bound
+// (2.5 us a tile per SM), and 8M hashes 84% (chip_smoke.py).
 //
 // The TPU grid ran in order and carried a row tile's count across the
 // band axis in its output block.  CUDA blocks run in any order, so each
@@ -71,7 +100,7 @@
 // every tile of the list, also one that turns out to hold no match.  On an
 // NVIDIA H100 80GB HBM3 at 700 W a list of 65,808 band tiles of the 1M
 // library takes 2.3-2.4 ms, 4.6-4.9 us per tile per SM beside
-// band_counts_kernel's 4.2 (chip_smoke.py, tools/k3_times.py).
+// band_counts_kernel's 2.5 (chip_smoke.py, tools/k3_times.py).
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -83,9 +112,11 @@ namespace {
 
 using namespace vdf;
 
-// -- band_counts_kernel: int8 +/-1 on the tensor cores (pm1_wgmma.cuh) -----
+// -- band_counts_kernel: int8 +/-1 on the tensor cores, the column tile in
+// -- registers (pm1_wgmma.cuh column_tile) ---------------------------------
 
-constexpr int COUNTS_SMEM = RING_BYTES + TILE * 8 + ALIGN_SLACK;  // slabs, win[], alignment
+// the row tile, win[], the four warps' (max lo, min hi), alignment
+constexpr int COUNTS_SMEM = SLABS * SLAB_BYTES + TILE * 8 + 4 * 8 + ALIGN_SLACK;
 
 __global__ void __launch_bounds__(THREADS, 1)
 band_counts_kernel(const int32_t* __restrict__ rows_m,    // [row tiles * TILE, 32]
@@ -98,8 +129,8 @@ band_counts_kernel(const int32_t* __restrict__ rows_m,    // [row tiles * TILE, 
                    int rt0, int slots, int n, int thresh) {
   extern __shared__ uint8_t smem_raw[];
   uint8_t* a_s = aligned_slabs(smem_raw);                     // [SLABS][TILE][SLAB]
-  uint8_t* b_s = a_s + SLABS * SLAB_BYTES;                    // [2][TILE][SLAB]
-  int2* win = reinterpret_cast<int2*>(b_s + 2 * SLAB_BYTES);  // per row: (lo, hi)
+  int2* win = reinterpret_cast<int2*>(a_s + SLABS * SLAB_BYTES);  // per row: (lo, hi)
+  int2* span = win + TILE;                                    // per warp: (max lo, min hi)
 
   const int segs = (slots + SEG - 1) / SEG;
   const int r = static_cast<int>(blockIdx.x / segs);  // row tile of the slab
@@ -110,44 +141,51 @@ band_counts_kernel(const int32_t* __restrict__ rows_m,    // [row tiles * TILE, 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int wg = tid >> 7;
-  const int er = tid >> 1;  // expansion: this thread's row / column of a tile
-  const int eh = tid & 1;   // ... and its half of each 16-byte slab row
   const int64_t r0 = static_cast<int64_t>(rt) * TILE;
-  if (tid < TILE) {
-    win[tid] = make_int2(row_lo ? row_lo[r0 + tid] : static_cast<int>(r0) + tid,
-                         min(bounds[r0 + tid], n));
-  }
-  expand_row_tile(a_s, rows_m, r0, er, eh);
 
+  // this thread's columns of every column tile, m and m + 8, and its
+  // quarter q of their words; the first tile's are loaded first
+  const int m = wg * 64 + ((tid >> 5) & 3) * 16 + (lane >> 2);
+  const int q = lane & 3;
   const int ct0 = first_ct[rt];
-  const uint2* cbase = reinterpret_cast<const uint2*>(cols_m) +
-                       (static_cast<int64_t>(ct0) * TILE + er) * (WORDS / 2) + eh;
-  uint2 cur[SLABS], nxt[SLABS];
-  load_tile(cur, cbase + t0 * TILE_U2);
-  expand(b_s, er, eh, cur[0]);
+  const uint4* cbase = reinterpret_cast<const uint4*>(cols_m) +
+                       (static_cast<int64_t>(ct0) * TILE + m) * (WORDS / 4) + 2 * q;
+  constexpr int TILE_U4 = TILE * (WORDS / 4);
+  uint32_t w[16], nw[16];
+  uint32_t f[2][16];
+  load_columns(w, cbase + static_cast<int64_t>(t0) * TILE_U4);
+
+  if (tid < TILE) {
+    const int2 v = make_int2(row_lo ? row_lo[r0 + tid] : static_cast<int>(r0) + tid,
+                             min(bounds[r0 + tid], n));
+    win[tid] = v;
+    const int lo = __reduce_max_sync(0xffffffffu, v.x);
+    const int hi = __reduce_min_sync(0xffffffffu, v.y);
+    if (lane == 0) span[tid >> 5] = make_int2(lo, hi);
+  }
+  expand_row_tile_quads(a_s, rows_m, r0, tid >> 1, tid & 1);
+  column_fragments(f[0], w[0], w[8]);
   fence_async_smem();
-  __syncthreads();
+  __syncthreads();  // the one block barrier: the row tile, win[] and span[] are written
 
-  // this thread's accumulator rows and columns (the D fragment)
-  const int qr = wg * 64 + ((tid >> 5) & 3) * 16 + (lane >> 2);
-  const int2 w0 = win[qr];
-  const int2 w1 = win[qr + 8];
-  const int cq = 2 * (lane & 3);
-  const uint64_t da = smem_desc(a_s + wg * 64 * SLAB);
-  const uint64_t db = smem_desc(b_s);
-
+  const int2 s0 = span[0], s1 = span[1], s2 = span[2], s3 = span[3];
+  const int max_lo = max(max(s0.x, s1.x), max(s2.x, s3.x));
+  const int min_hi = min(min(s0.y, s1.y), min(s2.y, s3.y));
+  const uint64_t db = smem_desc(a_s);
   int d[64];
-#pragma unroll
-  for (int i = 0; i < 64; ++i) d[i] = 0;
-
   for (int t = t0; t < t1; ++t) {
     const bool more = t + 1 < t1;
-    if (more) load_tile(nxt, cbase + (t + 1) * TILE_U2);
-    tile_products(d, da, db, b_s, er, eh, cur, nxt, more);
-    const int cnt = __reduce_add_sync(0xffffffffu, count_hits(d, (ct0 + t) * TILE, cq, w0, w1, thresh));
+    if (more) load_columns(nw, cbase + static_cast<int64_t>(t + 1) * TILE_U4);
+    column_tile(d, f, w, nw, more, db);
+    wgmma_wait<0>();
+    fence_operands(d);
+    const int c0 = (ct0 + t) * TILE + wg * 64;
+    const bool inside = c0 > max_lo && c0 + 64 <= min_hi;  // uniform over the warpgroup
+    const int cnt = __reduce_add_sync(
+        0xffffffffu, count_column_hits(d, c0 + (m & 63), q, win, inside, thresh));
     if (lane == 0 && cnt) atomicAdd(counts + static_cast<int64_t>(r) * slots + t, cnt);
 #pragma unroll
-    for (int k = 0; k < SLABS; ++k) cur[k] = nxt[k];
+    for (int i = 0; i < 16; ++i) w[i] = nw[i];
   }
 }
 
